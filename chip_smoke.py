@@ -1,24 +1,33 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--map-size 160]
+    python3 chip_smoke.py [--seed 0] [--map-size 160] [--phases kernels,predict,train]
 
 Phases, each printing what it found; any failure ends the run non-zero:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build the CUDA kernels from ``mica_tpu_torch/csrc`` (one ``nvcc`` per
      source, all at once);
-  3. hold every kernel against its plain PyTorch version at the main
-     path's shapes (batch 8, 64^3 windows, the widths of MICA at
-     base 64), in f32 from the same bf16 inputs, and time kernel, plain
-     version and one library call (a yardstick the port never calls);
-  4. the main path: ``predict_map`` on a synthetic map written to an MRC,
-     with a docked model for the AF3 encoding, random weights from
+  3. hold every kernel against its plain PyTorch version at the shapes of
+     its path (batch 8, 64^3 windows, the widths of MICA at base 64), in
+     f32 from the same bf16 inputs, and time kernel, plain version and one
+     library call (a yardstick the port never calls);
+  4. the prediction path: ``predict_map`` on a synthetic map written to an
+     MRC, with a docked model for the AF3 encoding, random weights from
      ``--seed``, bf16, batch 8, core 48 / halo 8; the launch counts of
      that run alone; a profile of one batch forward; then a small window
-     batch against the f32 network on the CPU.
+     batch against the f32 network on the CPU;
+  5. the training path: ``Trainer`` at base 64, bf16, batch 8 of 64^3
+     ``synthetic_batch`` windows, recomputation and augmentation on, the
+     epoch-0 dropout rate; 2 warm-up and 5 timed steps with the launch
+     counts of those 5 alone; 8 steps on one fixed batch whose loss must
+     fall; a 2 x 16^3 gradient against the f32 network on the CPU; a
+     profile of one step.
 
-The line before the last is the kernels' JSON record, the last line
+``--phases`` runs a subset for debugging; only a run of all three prints
+the kernels' record and the ok line.
+
+The kernels' JSON record and the card's name come before the last line,
 ``{"ok": true, "device": {...}}``.  Details go to ``--out`` (default
 ``build/chip_smoke.json``, git-ignored).
 """
@@ -71,7 +80,20 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def k1_sites(base: int = BASE):
+def _counters():
+    """The kernel wrappers' launch counts (module dicts, mutable)."""
+    from mica_tpu_torch.ops import conv3d_in, depthwise
+
+    return conv3d_in.launches, depthwise.launches
+
+
+def _reset_counts():
+    for counts in _counters():
+        for k in counts:
+            counts[k] = 0
+
+
+def k1_sites_of(base: int = BASE):
     """(parts' channels, Co, stats) of every K1 launch in one forward."""
     sites = []
     c = base
@@ -86,7 +108,7 @@ def k1_sites(base: int = BASE):
 def check_k1(torch, F, conv3d_in, g, detail):
     """K1 at every site, stats on and off, against the plain version in f32."""
     rows = []
-    for cis, co, main_stats in k1_sites():
+    for cis, co, main_stats in k1_sites_of():
         parts = [torch.randn(BATCH, WIN, WIN, WIN, c, device="cuda", generator=g)
                  .to(torch.bfloat16) for c in cis]
         ci = sum(cis)
@@ -201,6 +223,142 @@ def check_k3(torch, F, depthwise, g, detail):
     return rows
 
 
+# Launches of K4-K6 per training step at each output width Co, at base 64
+# with recomputation: every RDB/transition site once in the forward (K4),
+# the 9 RDB sites again in the recomputation (K4), and each site once in
+# the backward (K5, K6).
+K4_PER_STEP = {32: 4, 64: 6, 128: 7, 256: 3, 512: 1}
+K56_PER_STEP = {32: 2, 64: 3, 128: 4, 256: 2, 512: 1}
+K7_PER_STEP = {64: 1, 128: 1, 256: 1}
+
+
+def _bf16_table(torch, g, c, lo, hi):
+    return (torch.rand(BATCH, c, device="cuda", generator=g) * (hi - lo) + lo)
+
+
+def check_k4(torch, conv3d_in, g, detail):
+    rows = []
+    for c in K4_PER_STEP:
+        x = torch.randn(BATCH, WIN, WIN, WIN, c, device="cuda", generator=g).to(torch.bfloat16)
+        mean = _bf16_table(torch, g, c, -0.1, 0.1)
+        scale = _bf16_table(torch, g, c, 0.5, 1.5)
+        want_y, want_xh = conv3d_in.in_apply_ad_plain(
+            x.float(), mean.to(torch.bfloat16).float(), scale.to(torch.bfloat16).float())
+        y, xh = conv3d_in.in_apply_ad(x.clone(), mean, scale)
+        torch.cuda.synchronize()
+        py, pxh = conv3d_in.in_apply_ad_plain(x, mean, scale)
+        exact = torch.equal(y, py) and torch.equal(xh, pxh)
+        err = max((y.float() - want_y).abs().max().item(), (xh.float() - want_xh).abs().max().item())
+        tol = 1e-2 * want_xh.abs().max().item()
+        fail_if(not err <= tol, f"K4 C={c}: err {err} > {tol}")
+        bnd, by = bound_ms(3.0 * x.numel(), 6.0 * x.numel() + 8.0 * BATCH * c, PEAK_F32)
+        buf = x.clone()
+        ms = cuda_ms(lambda: conv3d_in.in_apply_ad(buf, mean, scale), reps=5)
+        plain = cuda_ms(lambda: conv3d_in.in_apply_ad_plain(x, mean, scale))
+        m16 = mean.to(torch.bfloat16)[:, None, None, None]
+        s16 = scale.to(torch.bfloat16)[:, None, None, None]
+        lib = cuda_ms(lambda: torch.relu(torch.sub(x, m16).mul_(s16)))
+        rows.append(dict(site=c, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=bnd, bound_by=by))
+        print(f"K4 C={c}: max_abs_err {err:.3e} (tol {tol:.3e}), bitwise equal to the bf16 "
+              f"plain version: {exact}; time {ms:.3f} ms, plain {plain:.3f} ms, eager bf16 "
+              f"{lib:.3f} ms, bound {bnd:.3f} ms ({by})", flush=True)
+        del x, y, xh, want_y, want_xh, py, pxh, buf
+        torch.cuda.empty_cache()
+    detail["in_apply_ad"] = rows
+    return rows
+
+
+def check_k5_k6(torch, conv3d_in, g, detail):
+    rows5, rows6 = [], []
+    for c in K56_PER_STEP:
+        xh = torch.randn(BATCH, WIN, WIN, WIN, c, device="cuda", generator=g).to(torch.bfloat16)
+        dy = torch.randn(BATCH, WIN, WIN, WIN, c, device="cuda", generator=g).to(torch.bfloat16)
+        n = WIN ** 3
+        # K5: f32 sums against the plain version's; tolerance 1e-5 of the
+        # sum of the terms' magnitudes (f32 sums in another order)
+        st = conv3d_in.in_bwd_stats(xh, dy)
+        torch.cuda.synchronize()
+        want = conv3d_in.in_bwd_stats_plain(xh, dy)
+        mag = conv3d_in.in_bwd_stats_plain(xh.abs(), dy.abs())
+        err5 = (st - want).abs().max().item()
+        excess = ((st - want).abs() - 1e-5 * mag).max().item()
+        fail_if(not excess <= 1e-3, f"K5 C={c}: err {err5} beyond 1e-5 of the magnitudes")
+        bnd, by = bound_ms(4.0 * xh.numel(), 4.0 * xh.numel() + 8.0 * BATCH * c, PEAK_F32)
+        ms = cuda_ms(lambda: conv3d_in.in_bwd_stats(xh, dy), reps=5)
+        plain = cuda_ms(lambda: conv3d_in.in_bwd_stats_plain(xh, dy))
+
+        def lib_sums():
+            gg = torch.where(xh > 0, dy, 0)
+            return torch.stack([gg.sum(dim=(1, 2, 3), dtype=torch.float32),
+                                (gg * xh).sum(dim=(1, 2, 3), dtype=torch.float32)], 1)
+
+        lib = cuda_ms(lib_sums)
+        rows5.append(dict(site=c, max_abs_err=err5, ms=ms, plain_ms=plain, library_ms=lib,
+                          bound_ms=bnd, bound_by=by))
+        print(f"K5 C={c}: max_abs_err {err5:.3e} (tol 1e-5 of sum |g|, sum |g x^|); time "
+              f"{ms:.3f} ms, plain {plain:.3f} ms, torch.sum of the products {lib:.3f} ms, "
+              f"bound {bnd:.3f} ms ({by})", flush=True)
+
+        m1, m2 = st[:, 0] / n, st[:, 1] / n
+        scale = _bf16_table(torch, g, c, 0.5, 1.5)
+        dc = conv3d_in.in_bwd_apply(xh, dy, m1, m2, scale)
+        torch.cuda.synchronize()
+        exact = torch.equal(dc, conv3d_in.in_bwd_apply_plain(xh, dy, m1, m2, scale))
+        r = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+        want6 = conv3d_in.in_bwd_apply_plain(xh.float(), dy.float(), r(m1), r(m2), r(scale))
+        err6 = (dc.float() - want6).abs().max().item()
+        tol = 2e-2 * want6.abs().max().item()
+        fail_if(not err6 <= tol, f"K6 C={c}: err {err6} > {tol}")
+        bnd, by = bound_ms(5.0 * xh.numel(), 6.0 * xh.numel() + 12.0 * BATCH * c, PEAK_F32)
+        ms = cuda_ms(lambda: conv3d_in.in_bwd_apply(xh, dy, m1, m2, scale), reps=5)
+        plain = cuda_ms(lambda: conv3d_in.in_bwd_apply_plain(xh, dy, m1, m2, scale))
+        e = lambda t: t.to(torch.bfloat16)[:, None, None, None]  # noqa: E731
+        lib = cuda_ms(lambda: e(scale) * (torch.where(xh > 0, dy, 0) - e(m1) - xh * e(m2)))
+        rows6.append(dict(site=c, max_abs_err=err6, ms=ms, plain_ms=plain, library_ms=lib,
+                          bound_ms=bnd, bound_by=by))
+        print(f"K6 C={c}: max_abs_err {err6:.3e} (tol {tol:.3e}, bf16 rounding of four ops), "
+              f"bitwise equal to the bf16 plain version: {exact}; time {ms:.3f} ms, plain "
+              f"{plain:.3f} ms, eager bf16 {lib:.3f} ms, bound {bnd:.3f} ms ({by})", flush=True)
+        del xh, dy, dc, want6
+        torch.cuda.empty_cache()
+    detail["in_bwd_stats"], detail["in_bwd_apply"] = rows5, rows6
+    return rows5, rows6
+
+
+def check_k7(torch, depthwise, g, detail):
+    rows = []
+    for c in K7_PER_STEP:
+        x = torch.randn(BATCH, WIN, WIN, WIN, c, device="cuda", generator=g).to(torch.bfloat16)
+        gr = torch.randn(BATCH, WIN, WIN, WIN, c, device="cuda", generator=g).to(torch.bfloat16)
+        got = depthwise.depthwise_grads(x, gr)
+        torch.cuda.synchronize()
+        want = depthwise.depthwise_grads_plain(x, gr)
+        mag = depthwise.depthwise_grads_plain(x.abs(), gr.abs())
+        err = (got - want).abs().max().item()
+        excess = ((got - want).abs() - 1e-5 * mag).max().item()
+        fail_if(not excess <= 1e-3, f"K7 C={c}: err {err} beyond 1e-5 of the magnitudes")
+        bnd, by = bound_ms(2.0 * 28 * x.numel(), 4.0 * x.numel() + 4.0 * 28 * c, PEAK_F32)
+        ms = cuda_ms(lambda: depthwise.depthwise_grads(x, gr), reps=5)
+        plain = cuda_ms(lambda: depthwise.depthwise_grads_plain(x, gr), reps=1)
+        xl, gl = x.permute(0, 4, 1, 2, 3), gr.permute(0, 4, 1, 2, 3)
+
+        def lib_grads():
+            dk = torch.nn.grad.conv3d_weight(xl, (c, 1, 3, 3, 3), gl, padding=1, groups=c)
+            return dk, gr.sum(dim=(0, 1, 2, 3), dtype=torch.float32)
+
+        lib = cuda_ms(lib_grads)
+        rows.append(dict(site=c, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=bnd, bound_by=by))
+        print(f"K7 C={c}: max_abs_err {err:.3e} (tol 1e-5 of sum |x g| per tap); time "
+              f"{ms:.3f} ms, plain {plain:.3f} ms, library weight-grad conv + sum {lib:.3f} ms, "
+              f"bound {bnd:.3f} ms ({by})", flush=True)
+        del x, gr, want, mag
+        torch.cuda.empty_cache()
+    detail["depthwise3_grads"] = rows
+    return rows
+
+
 def synthetic_inputs(tmp: Path, n: int, seed: int):
     """A blob-density map (n^3 at 1 A, density in a central ball, empty
     corners) and a docked model of random residues on the blobs."""
@@ -242,9 +400,7 @@ def main_path(torch, args, detail):
     model = MICA(base=BASE).init_weights(torch.Generator().manual_seed(args.seed))
     with tempfile.TemporaryDirectory() as tmp:
         map_path, pdb_path = synthetic_inputs(Path(tmp), args.map_size, args.seed)
-        for counts in (conv3d_in.launches, depthwise.launches):
-            for k in counts:
-                counts[k] = 0
+        _reset_counts()
         t0 = time.time()
         out = predict_map(str(map_path), model, docked_pdb_path=str(pdb_path),
                           batch_size=BATCH, dtype=torch.bfloat16, base_filters=BASE,
@@ -306,6 +462,18 @@ def small_reference(torch, model, seed, detail):
     detail["small_reference_max_abs_dp"] = errs
 
 
+def _device_times(prof) -> dict:
+    """ms of device time per kernel name in a torch.profiler run."""
+    per_kernel = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t and getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type):
+            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + t / 1e3
+    return per_kernel
+
+
 def profile_forward(torch, model, seed, detail):
     """Where one batch forward's device time goes: kernel times from
     torch.profiler, the forward's device span from CUDA events."""
@@ -324,13 +492,7 @@ def profile_forward(torch, model, seed, detail):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fwd()
         torch.cuda.synchronize()
-    per_kernel = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if t and getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type):
-            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + t / 1e3
+    per_kernel = _device_times(prof)
     busy = sum(per_kernel.values())
     groups = {"conv3d_stats (K1)": "conv3d_stats_kernel", "in_apply (K2)": "in_apply_kernel",
               "depthwise3 (K3)": "depthwise3_kernel"}
@@ -351,13 +513,155 @@ def profile_forward(torch, model, seed, detail):
                              top=[[n[:200], v] for n, v in top])
 
 
+TRAIN_KERNELS = {"conv3d_stats": "conv3d_stats_kernel", "in_apply_ad": "in_apply_ad_kernel",
+                 "in_bwd_stats": "in_bwd_stats_kernel", "in_bwd_apply": "in_bwd_apply_kernel",
+                 "depthwise3": "depthwise3_kernel", "depthwise3_grads": "depthwise3_grads_kernel"}
+# per training step at base 64 with recomputation: K1 12 forward + 9
+# recomputed + 12 dx; K3 3 forward + 3 recomputed + 3 dx
+TRAIN_PER_STEP = {"conv3d_stats": 33, "in_apply_ad": 21, "in_bwd_stats": 12,
+                  "in_bwd_apply": 12, "depthwise3": 9, "depthwise3_grads": 3}
+
+
+def training_path(torch, args, detail):
+    """Trainer steps at the published width; returns the launch counts of
+    the timed steps, the trainer, its state and the batch."""
+    from mica_tpu_torch.models.mica import dropout_rate_for_epoch
+    from mica_tpu_torch.train.data import synthetic_batch
+    from mica_tpu_torch.train.loss import task_lambdas
+    from mica_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(base_filters=BASE, dtype=torch.bfloat16, seed=args.seed)
+    state = trainer.init_state()
+    batch = [torch.as_tensor(b).cuda() for b in synthetic_batch(BATCH, WIN, args.seed)]
+    lambdas, rate = task_lambdas(0), dropout_rate_for_epoch(0)
+    for _ in range(2):
+        trainer.train_step(state, batch, lambdas, rate)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = 5
+    _reset_counts()
+    t0 = time.time()
+    mets = [trainer.train_step(state, batch, lambdas, rate) for _ in range(steps)]
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) / steps * 1e3
+    counts = {k: v for c in _counters() for k, v in c.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["total_loss"]) for m in mets]
+    norms = [float(m["gradient_norm"]) for m in mets]
+    per_step = {k: counts[k] / steps for k in TRAIN_KERNELS}
+    print(f"training: base {BASE}, bf16, batch {BATCH} x {WIN}^3, recomputation and "
+          f"augmentation on, dropout {rate}: {step_ms:.3f} ms/step, "
+          f"{BATCH / step_ms * 1e3:.3f} samples/s over {steps} steps; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    print(f"  launches per step {json.dumps(per_step)}", flush=True)
+    print(f"  losses {losses}, gradient norms {norms}", flush=True)
+    fail_if(not all(math.isfinite(v) for v in losses + norms), "training loss or norm not finite")
+    for k, want in TRAIN_PER_STEP.items():
+        fail_if(per_step[k] != want, f"{k}: {per_step[k]} launches per step, expected {want}")
+    fail_if(counts["in_apply"] != 0, "training launched the inference-only K2")
+    launches = {k: counts[k] for k in TRAIN_KERNELS}
+
+    # one fixed batch, no augmentation or blanking: the loss must fall
+    saved = trainer.use_augmentation, trainer.exp_only_prob
+    trainer.use_augmentation, trainer.exp_only_prob = False, 0.0
+    fixed = [float(trainer.train_step(state, batch, lambdas, rate)["total_loss"])
+             for _ in range(8)]
+    trainer.use_augmentation, trainer.exp_only_prob = saved
+    print(f"fixed batch, 8 steps: losses {fixed}", flush=True)
+    fail_if(not all(math.isfinite(v) for v in fixed), "fixed-batch loss not finite")
+    fail_if(not fixed[-1] < fixed[0], f"fixed-batch loss did not fall: {fixed}")
+    detail["training"] = dict(step_ms=step_ms, samples_per_s=BATCH / step_ms * 1e3,
+                              peak_memory_bytes=peak, launches_per_step=per_step,
+                              losses=losses, gradient_norms=norms, fixed_batch_losses=fixed)
+    return launches, trainer, state, batch
+
+
+def gradient_reference(torch, trainer, seed, detail):
+    """One 2 x 16^3 gradient on the card (bf16, kernels) against the same
+    weights in f32 on the CPU (plain versions), dropout off."""
+    from mica_tpu_torch.models.mica import MICA
+    from mica_tpu_torch.train.loss import multi_task_loss, task_lambdas
+
+    rng = np.random.default_rng(seed + 3)
+    x = torch.from_numpy(rng.random((2, 16, 16, 16, 1)).astype(np.float32))
+    af = torch.from_numpy((rng.random((2, 16, 16, 16, 24)) < 0.03).astype(np.float32))
+    af[0] = 0.0
+    tgt = [torch.from_numpy(rng.integers(0, k, (2, 16, 16, 16))) for k in (4, 4, 21)]
+    cpu = MICA(base=BASE, dtype=torch.float32)
+    cpu.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
+    grads = []
+    for model, dev in ((trainer.model, "cuda"), (cpu, "cpu")):
+        model.zero_grad(set_to_none=True)
+        outs = model(x.to(dev), af.to(dev), train=True)
+        loss, _ = multi_task_loss(outs, [t.to(dev) for t in tgt], task_lambdas(0))
+        loss.backward()
+        grads.append({k: p.grad.detach().double().cpu().ravel()
+                      for k, p in model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+    card, ref = grads
+    whole = torch.nn.functional.cosine_similarity(
+        torch.cat(list(card.values())), torch.cat([ref[k] for k in card]), dim=0).item()
+    gmax = max(v.norm().item() for v in ref.values())
+    cos = {k: torch.nn.functional.cosine_similarity(card[k], ref[k], dim=0).item()
+           for k in ref if ref[k].norm().item() >= 1e-4 * gmax}
+    vals = sorted(cos.values())
+    worst = min(cos, key=cos.get)
+    print(f"gradient reference (2 x 16^3, bf16 card vs f32 CPU, dropout 0): cosine of the "
+          f"whole gradient {whole:.5f} (fail under 0.9); per tensor over {len(vals)} of "
+          f"{len(ref)} tensors (the rest below 1e-4 of the largest norm): worst "
+          f"{vals[0]:.5f} ({worst}), median {vals[len(vals) // 2]:.5f}", flush=True)
+    fail_if(not whole >= 0.9, f"gradient cosine {whole} < 0.9")
+    detail["gradient_reference"] = dict(whole_cosine=whole, worst=vals[0], worst_tensor=worst,
+                                        median=vals[len(vals) // 2])
+
+
+def profile_train_step(torch, trainer, state, batch, detail):
+    """Where one training step's device time goes: kernel times and the
+    step's device span, both from one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mica_tpu_torch.train.loss import task_lambdas
+
+    def step():
+        trainer.train_step(state, batch, task_lambdas(0), 0.01)
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    # the span of the profiled step itself: a training step's host work
+    # (the augmentation's choices are read back once) is part of its idle
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+    span = start.elapsed_time(end)
+    per_kernel = _device_times(prof)
+    busy = sum(per_kernel.values())
+    shares = {k: sum(v for n, v in per_kernel.items() if pat in n)
+              for k, pat in TRAIN_KERNELS.items()}
+    shares["other kernels"] = busy - sum(shares.values())
+    print(f"profile of one training step: device span {span:.3f} ms, kernel time "
+          f"{busy:.3f} ms" + (f", idle share {1 - busy / span:.3f}" if busy else
+                              ": profiler saw no device time (not measured)"), flush=True)
+    for label, v in shares.items():
+        print(f"  {label}: {v:.3f} ms", flush=True)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
+    for name, v in top:
+        print(f"  {v:9.3f} ms  {name[:100]}", flush=True)
+    detail["train_profile"] = dict(span_ms=span, kernel_ms=busy, shares_ms=shares,
+                                   top=[[n[:200], v] for n, v in top])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--map-size", type=int, default=160)
+    ap.add_argument("--phases", default="kernels,predict,train",
+                    help="comma-separated subset of kernels, predict, train")
     ap.add_argument("--out", default="build/chip_smoke.json",
                     help="where the detailed JSON record is written")
     args = ap.parse_args()
+    phases = set(args.phases.split(","))
 
     import torch
     import torch.nn.functional as F
@@ -378,44 +682,79 @@ def main() -> int:
           flush=True)
 
     detail = {"device": smi, "build_s": per_source}
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
     g = torch.Generator(device="cuda").manual_seed(args.seed)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    k1 = check_k1(torch, F, conv3d_in, g, detail)
-    k2 = check_k2(torch, conv3d_in, g, detail)
-    k3 = check_k3(torch, F, depthwise, g, detail)
-    torch.backends.cudnn.allow_tf32 = True
-    torch.cuda.empty_cache()
+    rows = {}
+    if "kernels" in phases:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        rows["conv3d_stats"] = check_k1(torch, F, conv3d_in, g, detail)
+        rows["in_apply"] = check_k2(torch, conv3d_in, g, detail)
+        rows["depthwise3"] = check_k3(torch, F, depthwise, g, detail)
+        rows["in_apply_ad"] = check_k4(torch, conv3d_in, g, detail)
+        rows["in_bwd_stats"], rows["in_bwd_apply"] = check_k5_k6(torch, conv3d_in, g, detail)
+        rows["depthwise3_grads"] = check_k7(torch, depthwise, g, detail)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.cuda.empty_cache()
+        out.write_text(json.dumps(detail, indent=1))
 
-    launches, model = main_path(torch, args, detail)
-    profile_forward(torch, model, args.seed, detail)
-    small_reference(torch, model, args.seed, detail)
+    if "predict" in phases:
+        predict_launches, model = main_path(torch, args, detail)
+        profile_forward(torch, model, args.seed, detail)
+        small_reference(torch, model, args.seed, detail)
+        del model
+        torch.cuda.empty_cache()
+        out.write_text(json.dumps(detail, indent=1))
 
-    def entry(name, route, source, replaces, rows, sites):
-        """One forward's worth of launches: K1's 13 sites, K2 at the 12
-        widths of the RDB/transition outputs, K3 at its three widths."""
-        by_site = {r["site"]: r for r in rows}
-        sel = [by_site[s] for s in sites]
-        tot = lambda k: sum(r[k] for r in sel)
-        bound_by = "operations" if all(r["bound_by"] == "operations" for r in sel) else "bytes"
+    if "train" in phases:
+        train_launches, trainer, state, batch = training_path(torch, args, detail)
+        profile_train_step(torch, trainer, state, batch, detail)
+        gradient_reference(torch, trainer, args.seed, detail)
+        out.write_text(json.dumps(detail, indent=1))
+
+    if phases != {"kernels", "predict", "train"}:
+        print(f"partial run ({args.phases}): no kernels record, no ok line", flush=True)
+        return 0
+
+    def entry(name, route, source, replaces, launches, sites):
+        """``sites``: launches of the path's run per site of ``rows[name]``,
+        so each time is the kernel's share of one forward (prediction) or
+        one step (training)."""
+        by_site = {r["site"]: r for r in rows[name]}
+        tot = lambda k: sum(by_site[s][k] * n for s, n in sites.items())  # noqa: E731
+        bound_by = ("operations" if all(by_site[s]["bound_by"] == "operations" for s in sites)
+                    else "bytes")
         return dict(name=name, route=route, source=source, replaces=replaces,
-                    launches=launches[name], max_abs_err=max(r["max_abs_err"] for r in rows),
+                    launches=launches[name],
+                    max_abs_err=max(r["max_abs_err"] for r in rows[name]),
                     ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
                     bound_by=bound_by, library_ms=tot("library_ms"))
 
-    k1_site_names = [f"{cis}->{co}" for cis, co, _ in k1_sites()]
-    k2_sites = [f"C={co}" for cis, co, st in k1_sites() if st]
+    k1_sites = {f"{cis}->{co}": 1 for cis, co, _ in k1_sites_of()}
+    k2_sites = {}
+    for cis, co, st in k1_sites_of():
+        if st:
+            k2_sites[f"C={co}"] = k2_sites.get(f"C={co}", 0) + 1
+    pl = predict_launches
     kernels = [
         entry("conv3d_stats", "cuda", "mica_tpu_torch/csrc/conv3d_stats.cu",
-              "mica_tpu/ops/wino_pallas.py:309", k1, k1_site_names),
+              "mica_tpu/ops/wino_pallas.py:309", pl, k1_sites),
         entry("in_apply", "triton", "mica_tpu_torch/ops/conv3d_in.py",
-              "mica_tpu/ops/wino_pallas.py:378", k2, k2_sites),
+              "mica_tpu/ops/wino_pallas.py:378", pl, k2_sites),
         entry("depthwise3", "cuda", "mica_tpu_torch/csrc/depthwise3.cu",
-              "mica_tpu/ops/depthwise_pallas.py:147", k3, ["C=64", "C=128", "C=256"]),
+              "mica_tpu/ops/depthwise_pallas.py:147", pl, {"C=64": 1, "C=128": 1, "C=256": 1}),
+        entry("in_apply_ad", "triton", "mica_tpu_torch/ops/conv3d_in.py",
+              "mica_tpu/ops/wino_pallas.py:493", train_launches, K4_PER_STEP),
+        entry("in_bwd_stats", "triton", "mica_tpu_torch/ops/conv3d_in.py",
+              "mica_tpu/ops/wino_pallas.py:546", train_launches, K56_PER_STEP),
+        entry("in_bwd_apply", "triton", "mica_tpu_torch/ops/conv3d_in.py",
+              "mica_tpu/ops/wino_pallas.py:582", train_launches, K56_PER_STEP),
+        entry("depthwise3_grads", "cuda", "mica_tpu_torch/csrc/depthwise3_grads.cu",
+              "mica_tpu/ops/depthwise_pallas.py:233", train_launches, K7_PER_STEP),
     ]
     detail["kernels"] = kernels
-    out = Path(args.out)
-    out.parent.mkdir(parents=True, exist_ok=True)
+    detail["launches"] = {"predict": predict_launches, "train": train_launches}
     out.write_text(json.dumps(detail, indent=1))
 
     print(json.dumps({"kernels": kernels}), flush=True)

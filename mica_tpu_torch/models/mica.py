@@ -1,6 +1,6 @@
 """The MICA multi-task 3-D network as a PyTorch module (channels-last).
 
-Port of ``mica_tpu/models/mica.py`` for inference.  Activations stay
+Port of ``mica_tpu/models/mica.py``, inference and training.  Activations stay
 (B, D, H, W, C) at every public boundary; a library conv takes
 ``x.permute(0, 4, 1, 2, 3)``, an NCDHW view with channels-last strides.
 Parameters are f32 and named after the original network's torch keys
@@ -17,19 +17,36 @@ Kernel routing:
   * the rest (stem, ``feat_conv``, FPN laterals and smooths, head conv2,
     the cascade corrections, the 1x1s) are library convs and matmuls, as
     they were XLA ops outside any Pallas kernel in the JAX package.
+
+Training (``train=True``) keeps that routing through autograd functions
+with hand-written backward kernels: ``conv3d_in_relu_ad`` (K1 + K4
+forward; K5, K6, K1 for dx and a library weight-grad conv backward) and
+``depthwise_conv3_ad`` (K3 forward; K3 and K7 backward).  As in the JAX
+package under training, the stem emits the compute dtype and the heads'
+fused conv1 is a library conv.  ``dropout_rate`` drives channel dropout
+(Dropout3d) at the reference's sites and the SE block's elementwise
+dropout; the heads use twice the rate, the transitions and FPN smooths
+half.  ``MICA(remat=True)`` recomputes each RDB, each DualAttention and
+the heads in the backward (``torch.utils.checkpoint``), the JAX
+package's ``remat_scope="blocks"``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.conv3d_in import conv3d, conv3d_in_relu
-from ..ops.depthwise import depthwise_conv3
+from ..ops.conv3d_in import conv3d, conv3d_in_relu, conv3d_in_relu_ad
+from ..ops.depthwise import depthwise_conv3, depthwise_conv3_ad
+
+# dropout units of one forward: the stem, (RDB, DualAttention, transition)
+# of each stage, the FPN and the heads
+_N_UNITS = 12
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -50,6 +67,50 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """Mean over (D, H, W) in f32, keepdims, cast back."""
     return x.float().mean(dim=(1, 2, 3), keepdim=True).to(x.dtype)
+
+
+class Dropout:
+    """The dropout masks of one unit of the network (the stem, a block, the
+    FPN, the heads), drawn at first use from a generator seeded with
+    ``seed`` on the activations' device.  ``torch.utils.checkpoint``
+    restores the default generators for a recomputation, never an explicit
+    one, so a checkpointed unit builds a new ``Dropout`` from the same seed
+    and draws the same masks again.  Kept values are scaled by
+    1 / (1 - rate), the scale rounded to the activations' dtype."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+        self._gen: Optional[torch.Generator] = None
+
+    def _mask(self, shape, rate: float, like: torch.Tensor) -> torch.Tensor:
+        if self._gen is None:
+            self._gen = torch.Generator(device=like.device).manual_seed(self.seed)
+        keep = torch.rand(shape, generator=self._gen, device=like.device) >= rate
+        return (keep.float() / (1.0 - rate)).to(like.dtype)
+
+    def channels(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        """Dropout3d: whole channels of a sample, one (B, 1, 1, 1, C) mask."""
+        if rate == 0.0:
+            return x
+        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        return x * self._mask(shape, rate, x)
+
+    def elements(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        if rate == 0.0:
+            return x
+        return x * self._mask(x.shape, rate, x)
+
+
+def _unit(module: nn.Module, x: torch.Tensor, rate: float, seed: Optional[int],
+          train: bool, remat: bool) -> torch.Tensor:
+    """``module(x, rate, drop, train)`` with its own ``Dropout``, under
+    ``torch.utils.checkpoint`` when ``remat``."""
+    def run(x):
+        return module(x, rate, None if seed is None else Dropout(seed), train)
+
+    if remat:
+        return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+    return run(x)
 
 
 class Conv(nn.Module):
@@ -151,10 +212,12 @@ class MultiScaleInput(nn.Module):
         self.feat_gate = _slots(_0=Conv(base, base // 4, 1), _2=Conv(base // 4, 1, 1))
         self.fusion = Conv(3 * base, base, 1)
 
-    def stem(self, x: torch.Tensor) -> torch.Tensor:
+    def stem(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """The four convs as one 9^3 conv (kernels zero-embedded, rounded
         to x's dtype as the JAX stem does), f32 accumulation and bias, cast
-        to x's dtype.  At even sizes it runs as the JAX package's
+        to x's dtype; under training the conv's output is cast first and
+        the bias added in x's dtype, as the JAX training path emits the
+        compute dtype.  At even sizes it runs as the JAX package's
         space-to-depth conv (fold 2 per axis: Cin 8, a 5^3 kernel), which
         a Cin=1 library conv runs far below its rate."""
         dt = x.dtype
@@ -169,10 +232,16 @@ class MultiScaleInput(nn.Module):
             y = _unfold_s2d(F.conv3d(_fold_s2d(xin), _fold_kernel_s2d(w), padding=2))
         else:
             y = F.conv3d(xin, w, padding=4)
-        return (y.permute(0, 2, 3, 4, 1) + b).to(dt)
+        y = y.permute(0, 2, 3, 4, 1)
+        if train:
+            return y.to(dt) + b.to(dt)
+        return (y + b).to(dt)
 
-    def forward(self, exp_map: torch.Tensor, af: Optional[torch.Tensor]) -> torch.Tensor:
-        x_exp = self.stem(exp_map)
+    def forward(self, exp_map: torch.Tensor, af: Optional[torch.Tensor], rate: float = 0.0,
+                drop: Optional[Dropout] = None, train: bool = False) -> torch.Tensor:
+        if drop is not None:
+            exp_map = drop.channels(exp_map, rate)
+        x_exp = self.stem(exp_map, train)
         a = torch.relu(self.exp_attention["1"](global_avg_pool(x_exp)))
         a = torch.sigmoid(self.exp_attention["3"](a))
         x_exp_enh = x_exp * a
@@ -180,6 +249,8 @@ class MultiScaleInput(nn.Module):
         if af is None:
             return exp_only
         af_zero = torch.sum(torch.abs(af.float()), dim=(1, 2, 3, 4)) < 1e-6
+        if drop is not None:
+            af = drop.channels(af, rate)
         x_feat = self.feat_conv(af)
         g = torch.relu(self.feat_gate["0"](x_feat))
         g = torch.sigmoid(self.feat_gate["2"](g))
@@ -192,10 +263,14 @@ class SEBlock(nn.Module):
         super().__init__()
         self.fc = _slots(_0=Dense(c, c // reduction), _3=Dense(c // reduction, c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rate: float = 0.0,
+                drop: Optional[Dropout] = None) -> torch.Tensor:
         b, c = x.shape[0], x.shape[-1]
         y = global_avg_pool(x).reshape(b, c)
-        y = torch.sigmoid(self.fc["3"](torch.relu(self.fc["0"](y))))
+        y = torch.relu(self.fc["0"](y))
+        if drop is not None:
+            y = drop.elements(y, rate)
+        y = torch.sigmoid(self.fc["3"](y))
         return x * y.reshape(b, 1, 1, 1, c)
 
 
@@ -207,15 +282,19 @@ class ResidualDenseBlock(nn.Module):
         self.conv3 = _slots(_0=Conv(2 * c, c, 3))
         self.se = SEBlock(c)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rate: float = 0.0, drop: Optional[Dropout] = None,
+                train: bool = False) -> torch.Tensor:
+        fused = conv3d_in_relu_ad if train else conv3d_in_relu
+
         def block(parts, slot):
             conv = slot["0"]
-            return conv3d_in_relu(parts, conv.weight, conv.bias)
+            h = fused(parts, conv.weight, conv.bias)
+            return h if drop is None else drop.channels(h, rate)
 
         x1 = block([x], self.conv1)
         x2 = block([x, x1], self.conv2)
         x3 = block([x, x1, x2], self.conv3)
-        return self.se(x3)
+        return self.se(x3, rate, drop)
 
 
 class DualAttention(nn.Module):
@@ -225,10 +304,15 @@ class DualAttention(nn.Module):
         self.global_attn = _slots(_1=Conv(c, c // 4, 1), _4=Conv(c // 4, c, 1))
         self.fusion = Conv(2 * c, c, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rate: float = 0.0, drop: Optional[Dropout] = None,
+                train: bool = False) -> torch.Tensor:
         lc = self.local_attn["0"]
-        local = torch.relu(instance_norm(depthwise_conv3(x, lc.weight, lc.bias)))
+        dw = depthwise_conv3_ad if train else depthwise_conv3
+        local = torch.relu(instance_norm(dw(x, lc.weight, lc.bias)))
         g = torch.relu(self.global_attn["1"](global_avg_pool(x)))
+        if drop is not None:
+            local = drop.channels(local, rate)
+            g = drop.channels(g, rate)
         g = torch.sigmoid(self.global_attn["4"](g))
         return self.fusion(torch.cat([local, g * x], dim=-1))
 
@@ -240,10 +324,19 @@ class EncoderStage(nn.Module):
         self.dual_attn = DualAttention(ci)
         self.transition = _slots(_0=Conv(ci, co, 3))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.dual_attn(self.dense_block(x))
+    def forward(self, x: torch.Tensor, rate: float = 0.0,
+                seeds: Sequence[Optional[int]] = (None, None, None), train: bool = False,
+                remat: bool = False) -> torch.Tensor:
+        """``seeds``: the dropout seeds of the RDB, the DualAttention and
+        the transition; ``remat`` checkpoints the RDB and the
+        DualAttention."""
+        x = _unit(self.dense_block, x, rate, seeds[0], train, remat)
+        x = _unit(self.dual_attn, x, rate, seeds[1], train, remat)
         t = self.transition["0"]
-        return conv3d_in_relu([x], t.weight, t.bias)
+        if not train:
+            return conv3d_in_relu([x], t.weight, t.bias)
+        h = conv3d_in_relu_ad([x], t.weight, t.bias)
+        return h if seeds[2] is None else Dropout(seeds[2]).channels(h, rate * 0.5)
 
 
 class FPN(nn.Module):
@@ -257,12 +350,13 @@ class FPN(nn.Module):
         self.lateral = nn.ModuleList([Conv(base * 2 ** (i + 1), base, 1) for i in range(3)])
         self.smooth = nn.ModuleList([_slots(_0=Conv(base, base, 3)) for _ in range(3)])
 
-    def forward(self, feats):
+    def forward(self, feats, rate: float = 0.0, drop: Optional[Dropout] = None):
         w = torch.softmax(self.weights.float(), dim=0)
         out = []
         for i, c in enumerate(feats):
             s = self.smooth[i]["0"]
-            out.append(s(self.lateral[i](c), s.weight * w[i], s.bias * w[i]))
+            y = s(self.lateral[i](c), s.weight * w[i], s.bias * w[i])
+            out.append(y if drop is None else drop.channels(y, rate * 0.5))
         return tuple(out)
 
 
@@ -276,12 +370,18 @@ class TaskHead(nn.Module):
         self.calibration = _slots(_1=Conv(32, 8, 1), _4=Conv(8, 32, 1))
         self.final = Conv(32, n_cls, 1)
 
-    def rest(self, h1: torch.Tensor, out_slice: Optional[slice] = None) -> torch.Tensor:
-        """IN -> relu -> conv2 -> IN -> relu -> calibration -> final 1x1 in
-        f32.  ``out_slice`` crops before the 1x1, which is exact."""
+    def rest(self, h1: torch.Tensor, out_slice: Optional[slice] = None, rate: float = 0.0,
+             drop: Optional[Dropout] = None) -> torch.Tensor:
+        """IN -> relu -> conv2 -> IN -> relu -> dropout -> calibration ->
+        final 1x1 in f32.  ``out_slice`` crops before the 1x1, which is
+        exact."""
         x = torch.relu(instance_norm(h1))
         x = torch.relu(instance_norm(self.conv2(x)))
+        if drop is not None:
+            x = drop.channels(x, rate)
         cal = torch.relu(self.calibration["1"](global_avg_pool(x)))
+        if drop is not None:
+            cal = drop.channels(cal, rate)
         x = x * torch.sigmoid(self.calibration["4"](cal))
         if out_slice is not None:
             x = x[:, out_slice, out_slice, out_slice, :]
@@ -293,10 +393,12 @@ class MICA(nn.Module):
     (B, D, H, W, n_cls) with n_cls 4/4/21; ``exp_map`` (B, D, H, W, 1),
     ``af`` (B, D, H, W, 24) or None."""
 
-    def __init__(self, base: int = 64, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, base: int = 64, dtype: torch.dtype = torch.bfloat16,
+                 remat: bool = False):
         super().__init__()
         self.base = base
         self.dtype = dtype
+        self.remat = remat
         self.input_processing = MultiScaleInput(base)
         self.encoder = nn.ModuleList(
             [EncoderStage(base * 2 ** i, base * 2 ** (i + 1)) for i in range(3)])
@@ -322,35 +424,73 @@ class MICA(nn.Module):
                     p.normal_(0.0, std, generator=generator)
         return self
 
-    def heads(self, fpn, out_slice: Optional[slice]):
-        """The three cascaded heads over one fused 192-out conv1 (K1, no
-        bias, no statistics) of the FPN parts; bb/ca logits (f32) are cast
+    def heads(self, fpn, out_slice: Optional[slice], rate: float = 0.0,
+              drop: Optional[Dropout] = None, train: bool = False):
+        """The three cascaded heads over one fused 192-out conv1 of the FPN
+        parts (K1, no bias, no statistics; a library conv of their concat
+        under training, as in the JAX package); bb/ca logits (f32) are cast
         back to the compute dtype for the cascade corrections."""
         dt = fpn[0].dtype
         fpn_ch = sum(p.shape[-1] for p in fpn)
         bb_h, ca_h, aa_h = self.backbone_head, self.ca_head, self.aa_head
         k_big = torch.cat([bb_h.conv1.weight, ca_h.conv1.weight[:, :fpn_ch],
                            aa_h.conv1.weight[:, :fpn_ch]], dim=0)
-        big, _ = conv3d(list(fpn), k_big, None, with_stats=False)
+        if train:
+            big = conv_same(torch.cat(list(fpn), dim=-1), k_big)
+        else:
+            big, _ = conv3d(list(fpn), k_big, None, with_stats=False)
 
-        backbone = bb_h.rest(big[..., :64] + bb_h.conv1.bias.to(dt))
+        backbone = bb_h.rest(big[..., :64] + bb_h.conv1.bias.to(dt), None, rate, drop)
         bb_f = backbone.to(dt)
         h_ca = (big[..., 64:128] + conv_same(bb_f, ca_h.conv1.weight[:, fpn_ch:])
                 + ca_h.conv1.bias.to(dt))
-        ca = ca_h.rest(h_ca)
+        ca = ca_h.rest(h_ca, None, rate, drop)
         h_aa = (big[..., 128:192]
                 + conv_same(torch.cat([bb_f, ca.to(dt)], dim=-1),
                             aa_h.conv1.weight[:, fpn_ch:])
                 + aa_h.conv1.bias.to(dt))
-        aa = aa_h.rest(h_aa, out_slice)
+        aa = aa_h.rest(h_aa, out_slice, rate, drop)
         return backbone, ca, aa
 
     def forward(self, exp_map: torch.Tensor, af: Optional[torch.Tensor] = None,
-                out_slice: Optional[slice] = None):
+                out_slice: Optional[slice] = None, *, dropout_rate: float = 0.0,
+                train: bool = False, generator: Optional[torch.Generator] = None):
+        """``train`` takes the differentiable kernels; with
+        ``dropout_rate`` > 0 it also drops, drawing one seed per unit from
+        ``generator`` (a CPU generator draws them without a device sync)."""
         dt = self.dtype
-        x = self.input_processing(exp_map.to(dt), None if af is None else af.to(dt))
+        seeds = [None] * _N_UNITS
+        if train and dropout_rate > 0.0:
+            if generator is None:
+                raise ValueError("dropout needs a generator")
+            seeds = torch.randint(0, 2 ** 62, (_N_UNITS,), generator=generator,
+                                  device=generator.device).tolist()
+        rate = dropout_rate if train else 0.0
+        remat = self.remat and train
+
+        def drop(i):
+            return None if seeds[i] is None else Dropout(seeds[i])
+
+        x = self.input_processing(exp_map.to(dt), None if af is None else af.to(dt),
+                                  rate, drop(0), train)
         feats = []
-        for stage in self.encoder:
-            x = stage(x)
+        for i, stage in enumerate(self.encoder):
+            x = stage(x, rate, seeds[1 + 3 * i:4 + 3 * i], train, remat)
             feats.append(x)
-        return self.heads(self.fpn(feats), out_slice)
+        fpn = self.fpn(feats, rate, drop(10))
+
+        def heads(*parts):
+            return self.heads(parts, out_slice, 2 * rate, drop(11), train)
+
+        if remat:
+            return checkpoint(heads, *fpn, use_reentrant=False, preserve_rng_state=False)
+        return heads(*fpn)
+
+
+def dropout_rate_for_epoch(epoch: int, schedule=(0.01, 0.05, 0.1)) -> float:
+    """The reference's epoch-gated dropout schedule."""
+    if epoch < 35:
+        return schedule[0]
+    if epoch < 50:
+        return schedule[1]
+    return schedule[2]

@@ -17,6 +17,17 @@ its plain PyTorch version:
 does: f32 statistics in the E[x^2]-E[x]^2 form, variance clamped at 0,
 apply in the compute dtype.
 
+The training path (``conv3d_in_relu_ad``, the ``Conv3dInReluFn`` autograd
+function) adds three Triton kernels, the passes of the reference's
+custom VJP ``wino_conv3d_in_relu_pallas_ad``:
+
+  * K4 ``in_apply_ad``: y = relu(x̂) in place and x̂ = (c - m)·s
+    (replaces ``_in_apply_ad_T``);
+  * K5 ``in_bwd_stats``: per-(b, c) sums of g = dy·[x̂ > 0] and g·x̂
+    (replaces ``_in_bwd_stats_T``);
+  * K6 ``in_bwd_apply``: dc = s·(g − m1 − x̂·m2) (replaces
+    ``_in_bwd_apply_T``).
+
 Weights are in torch layout, (Co, sum Ci, 3, 3, 3).  A wrapper given CPU
 tensors runs the plain version; given CUDA tensors it launches its kernel
 or raises.  ``launches`` counts kernel launches per wrapper.
@@ -32,13 +43,21 @@ import torch.nn.functional as F
 
 from . import _build
 
-launches = {"conv3d_stats": 0, "in_apply": 0}
+launches = {"conv3d_stats": 0, "in_apply": 0, "in_apply_ad": 0, "in_bwd_stats": 0,
+            "in_bwd_apply": 0}
 
 _BF16 = torch.bfloat16
 
 
 def _as_parts(parts) -> list:
     return list(parts) if isinstance(parts, (list, tuple)) else [parts]
+
+
+def _tile(c: int, triton) -> Tuple[int, int]:
+    """(BLOCK_S, BLOCK_C) of the Triton passes: up to 128 channels, ~8K
+    elements a tile."""
+    block_c = min(128, triton.next_power_of_2(c))
+    return max(16, 8192 // block_c), block_c
 
 
 # ---------------------------------------------------------------------------
@@ -182,8 +201,7 @@ def in_apply(y: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor) -> torch.
     if tuple(mean.shape) != (b, c) or tuple(scale.shape) != (b, c):
         raise ValueError("mean/scale must be (B, C)")
     triton, kernel = _in_apply_triton()
-    block_c = min(128, triton.next_power_of_2(c))
-    block_s = max(16, 8192 // block_c)
+    block_s, block_c = _tile(c, triton)
     grid = (triton.cdiv(s, block_s), triton.cdiv(c, block_c), b)
     kernel[grid](y, mean, scale, s, c, BLOCK_S=block_s, BLOCK_C=block_c, num_warps=8)
     launches["in_apply"] += 1
@@ -200,7 +218,282 @@ def in_stats(stats: torch.Tensor, n: int, eps: float = 1e-5):
 def conv3d_in_relu(parts: Sequence[torch.Tensor], weight: torch.Tensor,
                    bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """relu(instance_norm(conv3x3(concat(parts)) + bias)) through K1 + K2;
-    matches ``wino_conv3d_in_relu_pallas``."""
+    matches ``wino_conv3d_in_relu_pallas``.  Not differentiable: training
+    takes ``conv3d_in_relu_ad``."""
     out, stats = conv3d(parts, weight, bias, with_stats=True)
     mean, scale = in_stats(stats, out.shape[1] * out.shape[2] * out.shape[3], eps)
     return in_apply(out, mean, scale)
+
+
+# ---------------------------------------------------------------------------
+# K4-K6: the InstanceNorm + ReLU passes of the training path
+# ---------------------------------------------------------------------------
+#
+# All three are Triton, one pass over the voxels with a per-(batch,
+# channel) table, and bounded by device-memory bandwidth alone (a few
+# flops per 2-byte element).  Tiles are (BLOCK_S voxels, BLOCK_C
+# channels) of the channels-last tensor, so a row of a tile is one
+# voxel's contiguous channel run.
+
+
+def _check_bf16_5d(name: str, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.dtype != _BF16 or not t.is_contiguous() or t.dim() != 5 or t.shape != ts[0].shape:
+            raise TypeError(f"{name} on the card takes contiguous bf16 (B,D,H,W,C) "
+                            "tensors of one shape")
+
+
+def _check_table(name: str, b: int, c: int, *ts: torch.Tensor) -> list:
+    out = [t.to(torch.float32).contiguous() for t in ts]
+    if any(tuple(t.shape) != (b, c) for t in out):
+        raise ValueError(f"{name}: the per-channel tables must be (B, C) = ({b}, {c})")
+    return out
+
+
+def in_apply_ad_plain(c: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor):
+    """Plain version of K4: x̂ = (c - m) * s in c's dtype (m, s cast to it
+    first, each op rounded), y = relu(x̂) taken through f32.  Returns
+    (y, x̂) out of place."""
+    dt = c.dtype
+    m = mean.to(dt)[:, None, None, None, :]
+    s = scale.to(dt)[:, None, None, None, :]
+    xh = (c - m) * s
+    return torch.relu(xh.float()).to(dt), xh
+
+
+def in_bwd_stats_plain(xh: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5: (B, 2, C) f32 sums over the voxels of
+    g = dy·[x̂ > 0] and g·x̂, products of the f32 values."""
+    xf = xh.float()
+    g = torch.where(xf > 0, dy.float(), 0.0)
+    return torch.stack([g.sum(dim=(1, 2, 3)), (g * xf).sum(dim=(1, 2, 3))], dim=1)
+
+
+def in_bwd_apply_plain(xh: torch.Tensor, dy: torch.Tensor, m1: torch.Tensor,
+                       m2: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6: dc = s·(g − m1 − x̂·m2) in x̂'s dtype, g =
+    dy·[x̂ > 0], with the (B, C) f32 m1, m2 and s cast to that dtype and
+    each op rounded, as ``_bwd_apply_kernel`` does."""
+    dt = xh.dtype
+    g = torch.where(xh.float() > 0, dy, torch.zeros((), dtype=dy.dtype)).to(dt)
+    m1, m2, s = (t.to(dt)[:, None, None, None, :] for t in (m1, m2, scale))
+    return s * (g - m1 - xh * m2)
+
+
+_ad_kernels = None
+
+
+def _ad_triton():
+    global _ad_kernels
+    if _ad_kernels is None:
+        import triton
+        import triton.language as tl
+
+        @triton.jit
+        def in_apply_ad_kernel(y_ptr, xh_ptr, m_ptr, s_ptr, S, C,
+                               BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
+            pid_s = tl.program_id(0)
+            pid_c = tl.program_id(1)
+            b = tl.program_id(2)
+            rows = pid_s * BLOCK_S + tl.arange(0, BLOCK_S)
+            cols = pid_c * BLOCK_C + tl.arange(0, BLOCK_C)
+            cmask = cols < C
+            m = tl.load(m_ptr + b * C + cols, mask=cmask, other=0.0)
+            s = tl.load(s_ptr + b * C + cols, mask=cmask, other=0.0)
+            m = m.to(tl.bfloat16).to(tl.float32)
+            s = s.to(tl.bfloat16).to(tl.float32)
+            offs = ((b * S + rows).to(tl.int64))[:, None] * C + cols[None, :]
+            mask = (rows < S)[:, None] & cmask[None, :]
+            x = tl.load(y_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+            t = (x - m[None, :]).to(tl.bfloat16).to(tl.float32)
+            xh = (t * s[None, :]).to(tl.bfloat16)
+            tl.store(xh_ptr + offs, xh, mask=mask)
+            # relu of the rounded x̂ is exact in bf16
+            tl.store(y_ptr + offs, tl.maximum(xh.to(tl.float32), 0.0).to(tl.bfloat16),
+                     mask=mask)
+
+        @triton.jit
+        def in_bwd_stats_kernel(xh_ptr, dy_ptr, st_ptr, S, C, CHUNK,
+                                BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
+            pid_s = tl.program_id(0)
+            pid_c = tl.program_id(1)
+            b = tl.program_id(2)
+            cols = pid_c * BLOCK_C + tl.arange(0, BLOCK_C)
+            cmask = cols < C
+            acc_g = tl.zeros((BLOCK_C,), dtype=tl.float32)
+            acc_gx = tl.zeros((BLOCK_C,), dtype=tl.float32)
+            start = pid_s * CHUNK
+            for s0 in range(start, tl.minimum(start + CHUNK, S), BLOCK_S):
+                rows = s0 + tl.arange(0, BLOCK_S)
+                offs = ((b * S + rows).to(tl.int64))[:, None] * C + cols[None, :]
+                mask = (rows < S)[:, None] & cmask[None, :]
+                xh = tl.load(xh_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+                dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+                g = tl.where(xh > 0, dy, 0.0)
+                acc_g += tl.sum(g, axis=0)
+                acc_gx += tl.sum(g * xh, axis=0)
+            # one atomic per (program, b, c): the partial sums of CHUNK voxels
+            tl.atomic_add(st_ptr + b * 2 * C + cols, acc_g, mask=cmask)
+            tl.atomic_add(st_ptr + b * 2 * C + C + cols, acc_gx, mask=cmask)
+
+        @triton.jit
+        def round_bf16(x):
+            # f32 -> nearest bf16 (ties to even) -> f32 in integer ops, a
+            # rounding that no compiler contracts away: with plain casts
+            # the card result differed from the eager expression by an
+            # ulp of x̂·m2 where (g - m1) and x̂·m2 cancel
+            bits = x.to(tl.int32, bitcast=True)
+            bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & -65536
+            return bits.to(tl.float32, bitcast=True)
+
+        @triton.jit
+        def in_bwd_apply_kernel(xh_ptr, dy_ptr, dc_ptr, m1_ptr, m2_ptr, s_ptr, S, C,
+                                BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
+            pid_s = tl.program_id(0)
+            pid_c = tl.program_id(1)
+            b = tl.program_id(2)
+            rows = pid_s * BLOCK_S + tl.arange(0, BLOCK_S)
+            cols = pid_c * BLOCK_C + tl.arange(0, BLOCK_C)
+            cmask = cols < C
+            m1 = tl.load(m1_ptr + b * C + cols, mask=cmask, other=0.0)
+            m2 = tl.load(m2_ptr + b * C + cols, mask=cmask, other=0.0)
+            s = tl.load(s_ptr + b * C + cols, mask=cmask, other=0.0)
+            m1 = round_bf16(m1)
+            m2 = round_bf16(m2)
+            s = round_bf16(s)
+            offs = ((b * S + rows).to(tl.int64))[:, None] * C + cols[None, :]
+            mask = (rows < S)[:, None] & cmask[None, :]
+            xh = tl.load(xh_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+            dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+            g = tl.where(xh > 0, dy, 0.0)
+            # each op rounds to bf16, as the eager bf16 expression does
+            t1 = round_bf16(g - m1[None, :])
+            t2 = round_bf16(xh * m2[None, :])
+            t3 = round_bf16(t1 - t2)
+            tl.store(dc_ptr + offs, (s[None, :] * t3).to(tl.bfloat16), mask=mask)
+
+        _ad_kernels = (triton, in_apply_ad_kernel, in_bwd_stats_kernel, in_bwd_apply_kernel)
+    return _ad_kernels
+
+
+def in_apply_ad(c: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor):
+    """K4, replaces ``_in_apply_ad_T``.  ``c`` (B, D, H, W, C) conv output;
+    ``mean``/``scale`` (B, C) f32.  Returns (y, x̂); on the card y is
+    written over ``c`` and x̂ into a new tensor."""
+    if c.device.type == "cpu":
+        return in_apply_ad_plain(c, mean, scale)
+    _check_bf16_5d("in_apply_ad", c)
+    b, ch = c.shape[0], c.shape[4]
+    s = c.shape[1] * c.shape[2] * c.shape[3]
+    mean, scale = _check_table("in_apply_ad", b, ch, mean, scale)
+    triton, kernel, _, _ = _ad_triton()
+    xh = torch.empty_like(c)
+    block_s, block_c = _tile(ch, triton)
+    grid = (triton.cdiv(s, block_s), triton.cdiv(ch, block_c), b)
+    kernel[grid](c, xh, mean, scale, s, ch, BLOCK_S=block_s, BLOCK_C=block_c, num_warps=8)
+    launches["in_apply_ad"] += 1
+    return c, xh
+
+
+def in_bwd_stats(xh: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """K5, replaces ``_in_bwd_stats_T``.  Per-(b, c) sums of g = dy·[x̂>0]
+    and g·x̂ over the voxels: (B, 2, C) f32.  Each program sums a chunk of
+    voxels in registers and adds it with one atomic per (b, c)."""
+    if xh.device.type == "cpu":
+        return in_bwd_stats_plain(xh, dy)
+    _check_bf16_5d("in_bwd_stats", xh, dy)
+    b, ch = xh.shape[0], xh.shape[4]
+    s = xh.shape[1] * xh.shape[2] * xh.shape[3]
+    triton, _, kernel, _ = _ad_triton()
+    block_s, block_c = _tile(ch, triton)
+    n_c = triton.cdiv(ch, block_c)
+    # ~2048 programs in all: enough to fill the card, few atomics
+    tiles = triton.cdiv(s, block_s)
+    n_s = max(1, min(tiles, 2048 // (b * n_c)))
+    chunk = triton.cdiv(tiles, n_s) * block_s
+    stats = torch.zeros((b, 2, ch), dtype=torch.float32, device=xh.device)
+    kernel[(triton.cdiv(s, chunk), n_c, b)](xh, dy, stats, s, ch, chunk,
+                                            BLOCK_S=block_s, BLOCK_C=block_c, num_warps=8)
+    launches["in_bwd_stats"] += 1
+    return stats
+
+
+def in_bwd_apply(xh: torch.Tensor, dy: torch.Tensor, m1: torch.Tensor,
+                 m2: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """K6, replaces ``_in_bwd_apply_T``: dc = s·(g − m1 − x̂·m2) into a new
+    tensor; m1, m2, s (B, C) f32."""
+    if xh.device.type == "cpu":
+        return in_bwd_apply_plain(xh, dy, m1, m2, scale)
+    _check_bf16_5d("in_bwd_apply", xh, dy)
+    b, ch = xh.shape[0], xh.shape[4]
+    s = xh.shape[1] * xh.shape[2] * xh.shape[3]
+    m1, m2, scale = _check_table("in_bwd_apply", b, ch, m1, m2, scale)
+    triton, _, _, kernel = _ad_triton()
+    dc = torch.empty_like(xh)
+    block_s, block_c = _tile(ch, triton)
+    grid = (triton.cdiv(s, block_s), triton.cdiv(ch, block_c), b)
+    kernel[grid](xh, dy, dc, m1, m2, scale, s, ch, BLOCK_S=block_s, BLOCK_C=block_c,
+                 num_warps=8)
+    launches["in_bwd_apply"] += 1
+    return dc
+
+
+def _ncdhw(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 4, 1, 2, 3)
+
+
+class Conv3dInReluFn(torch.autograd.Function):
+    """relu(instance_norm(conv3x3(concat(parts)) + bias)) with the custom
+    backward of ``wino_conv3d_in_relu_pallas_ad``:
+
+      forward   K1 (with statistics) -> ``in_stats`` -> K4, saving the
+                parts, the weight, x̂ and the (B, Co) f32 scale;
+      backward  K5 -> m1, m2 = sums / n -> K6 gives dc;
+                dx = K1 on dc with the zyx-flipped, Ci<->Co swapped
+                weight, no bias and no statistics, split per part;
+                dk = the library's weight-grad conv per part, in the parts'
+                dtype (one rounding of the f32 accumulation), cast to f32
+                once at the end, as the reference's XLA weight-grad does;
+                db = 0 exactly: InstanceNorm subtracts each channel's mean,
+                so a constant shift never reaches y.
+
+    ``apply(weight, bias, eps, *parts)``."""
+
+    @staticmethod
+    def forward(ctx, weight, bias, eps, *parts):
+        out, stats = conv3d(list(parts), weight, bias, with_stats=True)
+        mean, scale = in_stats(stats, out.shape[1] * out.shape[2] * out.shape[3], eps)
+        y, xh = in_apply_ad(out, mean, scale)
+        ctx.save_for_backward(weight, xh, scale, *parts)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        weight, xh, scale, *parts = ctx.saved_tensors
+        dy = dy.to(xh.dtype).contiguous()
+        n = xh.shape[1] * xh.shape[2] * xh.shape[3]
+        gstats = in_bwd_stats(xh, dy)
+        dc = in_bwd_apply(xh, dy, gstats[:, 0] / n, gstats[:, 1] / n, scale)
+        dparts = [None] * len(parts)
+        if any(ctx.needs_input_grad[3:]):
+            dx, _ = conv3d([dc], weight.flip(2, 3, 4).transpose(0, 1), None, with_stats=False)
+            offs = 0
+            for i, p in enumerate(parts):
+                dparts[i] = dx[..., offs:offs + p.shape[-1]]
+                offs += p.shape[-1]
+        dweight = dbias = None
+        if ctx.needs_input_grad[0]:
+            dks = [torch.nn.grad.conv3d_weight(_ncdhw(p), (weight.shape[0], p.shape[-1], 3, 3, 3),
+                                               _ncdhw(dc.to(p.dtype)), padding=1)
+                   for p in parts]
+            dweight = torch.cat(dks, dim=1).to(weight.dtype)
+        if ctx.needs_input_grad[1]:
+            dbias = torch.zeros_like(weight[:, 0, 0, 0, 0])
+        return (dweight, dbias, None, *dparts)
+
+
+def conv3d_in_relu_ad(parts: Sequence[torch.Tensor], weight: torch.Tensor,
+                      bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Differentiable ``conv3d_in_relu`` (K1, K4 forward; K5, K6, K1 and a
+    library weight-grad backward); matches ``wino_conv3d_in_relu_pallas_ad``."""
+    return Conv3dInReluFn.apply(weight, bias, eps, *_as_parts(parts))

@@ -8,7 +8,9 @@ with a card and without JAX, run them with
 Inputs are bf16; the plain versions run in f32 from the same bf16 values.
 Tolerance: 1e-2 of the largest reference value (one bf16 rounding of
 the output is 2^-9 relative), statistics 1e-4 relative (f32 sums in
-another order, with atomics).
+another order, with atomics).  K4 and K6 are bitwise equal to their bf16
+plain versions; K5's and K7's f32 sums stay within 1e-5 of the sum of
+the terms' magnitudes.
 """
 
 import pytest
@@ -88,3 +90,71 @@ def test_wrappers_refuse_f32_on_card(gen):
     with pytest.raises(TypeError):
         depthwise.depthwise_conv3(x, torch.randn(32, 1, 3, 3, 3, device="cuda"),
                                   torch.zeros(32, device="cuda"))
+
+
+@pytest.mark.parametrize("c", [32, 192, 512])
+def test_in_apply_ad_matches_plain_bitwise(gen, c):
+    from mica_tpu_torch.ops import conv3d_in
+
+    x = torch.randn(2, 4, 6, 8, c, device="cuda", generator=gen).to(torch.bfloat16)
+    mean = torch.randn(2, c, device="cuda", generator=gen)
+    scale = torch.rand(2, c, device="cuda", generator=gen) + 0.5
+    want_y, want_xh = conv3d_in.in_apply_ad_plain(x, mean, scale)
+    before = conv3d_in.launches["in_apply_ad"]
+    y, xh = conv3d_in.in_apply_ad(x, mean, scale)
+    assert y.data_ptr() == x.data_ptr()  # y in place
+    assert conv3d_in.launches["in_apply_ad"] == before + 1
+    assert torch.equal(y, want_y) and torch.equal(xh, want_xh)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 6, 8, 64), (3, 5, 7, 9, 192), (1, 16, 16, 16, 32)])
+def test_in_bwd_kernels_match_plain(gen, shape):
+    """K5 against its f32 sums at 1e-5 of the terms' magnitudes; K6
+    bitwise against its bf16 plain version."""
+    from mica_tpu_torch.ops import conv3d_in
+
+    xh = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+    dy = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+    st = conv3d_in.in_bwd_stats(xh, dy)
+    want = conv3d_in.in_bwd_stats_plain(xh, dy)
+    mag = conv3d_in.in_bwd_stats_plain(xh.abs(), dy.abs())
+    assert ((st - want).abs() <= 1e-5 * mag + 1e-4).all()
+    n = shape[1] * shape[2] * shape[3]
+    scale = torch.rand(shape[0], shape[-1], device="cuda", generator=gen) + 0.5
+    args = (xh, dy, st[:, 0] / n, st[:, 1] / n, scale)
+    assert torch.equal(conv3d_in.in_bwd_apply(*args), conv3d_in.in_bwd_apply_plain(*args))
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 6, 9, 64), (1, 16, 16, 16, 256), (2, 3, 4, 5, 8)])
+def test_depthwise_grads_matches_plain(gen, shape):
+    from mica_tpu_torch.ops import depthwise
+
+    x = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+    g = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+    got = depthwise.depthwise_grads(x, g)
+    want = depthwise.depthwise_grads_plain(x, g)
+    mag = depthwise.depthwise_grads_plain(x.abs(), g.abs())
+    assert got.shape == (28, shape[-1])
+    assert ((got - want).abs() <= 1e-5 * mag + 1e-4).all()
+
+
+def test_autograd_fns_launch_their_kernels(gen):
+    """One backward through each autograd function launches K4-K7 and
+    returns f32 weight gradients; db of the conv before the norm is 0."""
+    from mica_tpu_torch.ops import conv3d_in, depthwise
+
+    x = torch.randn(2, 8, 8, 8, 64, device="cuda", generator=gen).to(torch.bfloat16)
+    x.requires_grad_()
+    w = (torch.randn(32, 64, 3, 3, 3, device="cuda", generator=gen) * 0.05).requires_grad_()
+    b = torch.zeros(32, device="cuda", requires_grad=True)
+    k = (torch.randn(64, 1, 3, 3, 3, device="cuda", generator=gen) * 0.2).requires_grad_()
+    kb = torch.zeros(64, device="cuda", requires_grad=True)
+    before = {**conv3d_in.launches, **depthwise.launches}
+    y = conv3d_in.conv3d_in_relu_ad([depthwise.depthwise_conv3_ad(x, k, kb)], w, b)
+    y.float().square().sum().backward()
+    after = {**conv3d_in.launches, **depthwise.launches}
+    for name in ("in_apply_ad", "in_bwd_stats", "in_bwd_apply", "depthwise3_grads"):
+        assert after[name] == before[name] + 1, name
+    assert after["conv3d_stats"] == before["conv3d_stats"] + 2  # forward and dx
+    assert w.grad.dtype == k.grad.dtype == torch.float32
+    assert torch.count_nonzero(b.grad) == 0 and x.grad.shape == x.shape
