@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--map-size 160] [--phases kernels,predict,train]
+    python3 chip_smoke.py [--seed 0] [--map-size 160]
 
 Phases, each printing what it found; any failure ends the run non-zero:
 
@@ -9,9 +9,10 @@ Phases, each printing what it found; any failure ends the run non-zero:
   2. build the CUDA kernels from ``mica_tpu_torch/csrc`` (one ``nvcc`` per
      source, all at once);
   3. hold every kernel against its plain PyTorch version at the shapes of
-     its path (batch 8, 64^3 windows, the widths of MICA at base 64), in
-     f32 from the same bf16 inputs, and time kernel, plain version and one
-     library call (a yardstick the port never calls);
+     its path (batch 8, 64^3 windows, the widths of MICA at base 64; for
+     K1 also every dx geometry of a training step), in f32 from the same
+     bf16 inputs, and time kernel, plain version and one library call (a
+     yardstick the port never calls);
   4. the prediction path: ``predict_map`` on a synthetic map written to an
      MRC, with a docked model for the AF3 encoding, random weights from
      ``--seed``, bf16, batch 8, core 48 / halo 8; the launch counts of
@@ -21,11 +22,9 @@ Phases, each printing what it found; any failure ends the run non-zero:
      ``synthetic_batch`` windows, recomputation and augmentation on, the
      epoch-0 dropout rate; 2 warm-up and 5 timed steps with the launch
      counts of those 5 alone; 8 steps on one fixed batch whose loss must
-     fall; a 2 x 16^3 gradient against the f32 network on the CPU; a
-     profile of one step.
-
-``--phases`` runs a subset for debugging; only a run of all three prints
-the kernels' record and the ok line.
+     fall; a profile of one step; 2 x 16^3 gradients against the f32
+     network on the CPU, at weights initialised from ``--seed`` (held on
+     the whole vector and on every tensor) and at the trained weights.
 
 The kernels' JSON record and the card's name come before the last line,
 ``{"ok": true, "device": {...}}``.  Details go to ``--out`` (default
@@ -158,6 +157,49 @@ def check_k1(torch, F, conv3d_in, g, detail):
         del parts, ref, ref_st
         torch.cuda.empty_cache()
     detail["conv3d_stats"] = rows
+    return rows
+
+
+def k1_dx_sites_of(base: int = BASE):
+    """{(Ci, Co): launches per training step} of K1's dx convs: one part
+    of a forward site's Co in, that site's summed Ci out, statistics and
+    bias off (``Conv3dInReluFn.backward``)."""
+    sites = {}
+    for cis, co, stats in k1_sites_of(base):
+        if stats:
+            sites[(co, sum(cis))] = sites.get((co, sum(cis)), 0) + 1
+    return sites
+
+
+def check_k1_dx(torch, F, conv3d_in, g, detail):
+    """K1 at every dx geometry of a training step, with the flipped and
+    transposed weight the backward passes, against the plain version in f32."""
+    rows = []
+    for (ci, co), per_step in k1_dx_sites_of().items():
+        dc = torch.randn(BATCH, WIN, WIN, WIN, ci, device="cuda", generator=g).to(torch.bfloat16)
+        w_fwd = torch.randn(ci, co, 3, 3, 3, device="cuda", generator=g) * math.sqrt(
+            2.0 / (27 * (ci + co)))
+        w = w_fwd.flip(2, 3, 4).transpose(0, 1)
+        want, _ = conv3d_in.conv3d_plain([dc.float()], w.to(torch.bfloat16).float(), None, False)
+        out, _ = conv3d_in.conv3d([dc], w, None, with_stats=False)
+        torch.cuda.synchronize()
+        err = (out.float() - want).abs().max().item()
+        tol = 1e-2 * want.abs().max().item()
+        fail_if(not err <= tol, f"K1 dx {ci}->{co}: err {err} > {tol}")
+        m = BATCH * WIN ** 3
+        flops = 2.0 * m * 27 * ci * co
+        bnd, by = bound_ms(flops, 2.0 * m * (ci + co) + 2.0 * w.numel(), PEAK_BF16)
+        ms = cuda_ms(lambda: conv3d_in.conv3d([dc], w, None, with_stats=False))
+        wl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+        lib = cuda_ms(lambda: F.conv3d(dc.permute(0, 4, 1, 2, 3), wl, padding=1))
+        rows.append(dict(site=f"{ci}->{co}", launches_per_step=per_step, max_abs_err=err,
+                         ms=ms, library_ms=lib, bound_ms=bnd, bound_by=by))
+        print(f"K1 dx {ci}->{co} (x{per_step} per step): max_abs_err {err:.3e} (tol {tol:.3e}); "
+              f"time {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), library conv3d {lib:.3f} ms, "
+              f"bound {bnd:.3f} ms ({by})", flush=True)
+        del dc, want, out
+        torch.cuda.empty_cache()
+    detail["conv3d_stats_dx"] = rows
     return rows
 
 
@@ -576,43 +618,85 @@ def training_path(torch, args, detail):
     return launches, trainer, state, batch
 
 
-def gradient_reference(torch, trainer, seed, detail):
-    """One 2 x 16^3 gradient on the card (bf16, kernels) against the same
-    weights in f32 on the CPU (plain versions), dropout off."""
-    from mica_tpu_torch.models.mica import MICA
-    from mica_tpu_torch.train.loss import multi_task_loss, task_lambdas
+# Limits of the bf16 card gradient against the f32 CPU gradient: (cosine
+# of the whole vector, worst cosine of a tensor above 1e-4 of the largest
+# reference norm) at weights initialised from the seed, and the whole
+# vector's cosine at the trainer's weights.  At fresh weights bf16 itself
+# is that far from f32: on the H100, seeds 0-3 read 0.883-0.894 whole and
+# 0.769-0.795 worst, and the JAX package's own bf16 gradient is no closer
+# to its f32 one (``test_bf16_gradient_no_farther_from_f32_than_jax``).
+GRAD_FRESH_MIN = (0.85, 0.7)
+GRAD_TRAINED_MIN = 0.9
 
+
+def _grad_inputs(torch, seed):
     rng = np.random.default_rng(seed + 3)
     x = torch.from_numpy(rng.random((2, 16, 16, 16, 1)).astype(np.float32))
     af = torch.from_numpy((rng.random((2, 16, 16, 16, 24)) < 0.03).astype(np.float32))
     af[0] = 0.0
     tgt = [torch.from_numpy(rng.integers(0, k, (2, 16, 16, 16))) for k in (4, 4, 21)]
-    cpu = MICA(base=BASE, dtype=torch.float32)
-    cpu.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
-    grads = []
-    for model, dev in ((trainer.model, "cuda"), (cpu, "cpu")):
-        model.zero_grad(set_to_none=True)
-        outs = model(x.to(dev), af.to(dev), train=True)
-        loss, _ = multi_task_loss(outs, [t.to(dev) for t in tgt], task_lambdas(0))
-        loss.backward()
-        grads.append({k: p.grad.detach().double().cpu().ravel()
-                      for k, p in model.named_parameters()})
-        model.zero_grad(set_to_none=True)
-    card, ref = grads
-    whole = torch.nn.functional.cosine_similarity(
-        torch.cat(list(card.values())), torch.cat([ref[k] for k in card]), dim=0).item()
+    return x, af, tgt
+
+
+def _model_grad(torch, model, dev, inputs):
+    from mica_tpu_torch.train.loss import multi_task_loss, task_lambdas
+
+    x, af, tgt = inputs
+    outs = model(x.to(dev), af.to(dev), train=True)
+    loss, _ = multi_task_loss(outs, [t.to(dev) for t in tgt], task_lambdas(0))
+    loss.backward()
+    return {k: p.grad.detach().double().cpu().ravel() for k, p in model.named_parameters()}
+
+
+def _grad_agreement(torch, card, ref, label, detail):
+    """Whole-vector and per-tensor cosines of ``card`` against ``ref``
+    over the tensors above 1e-4 of the largest reference norm."""
+    cos_of = torch.nn.functional.cosine_similarity
+    whole = cos_of(torch.cat(list(card.values())), torch.cat([ref[k] for k in card]), dim=0).item()
     gmax = max(v.norm().item() for v in ref.values())
-    cos = {k: torch.nn.functional.cosine_similarity(card[k], ref[k], dim=0).item()
+    cos = {k: cos_of(card[k], ref[k], dim=0).item()
            for k in ref if ref[k].norm().item() >= 1e-4 * gmax}
+    rel = {k: ((card[k] - ref[k]).norm() / ref[k].norm()).item() for k in cos}
     vals = sorted(cos.values())
     worst = min(cos, key=cos.get)
-    print(f"gradient reference (2 x 16^3, bf16 card vs f32 CPU, dropout 0): cosine of the "
-          f"whole gradient {whole:.5f} (fail under 0.9); per tensor over {len(vals)} of "
-          f"{len(ref)} tensors (the rest below 1e-4 of the largest norm): worst "
-          f"{vals[0]:.5f} ({worst}), median {vals[len(vals) // 2]:.5f}", flush=True)
-    fail_if(not whole >= 0.9, f"gradient cosine {whole} < 0.9")
-    detail["gradient_reference"] = dict(whole_cosine=whole, worst=vals[0], worst_tensor=worst,
-                                        median=vals[len(vals) // 2])
+    print(f"gradient reference, {label}: cosine of the whole gradient {whole:.5f}; per tensor "
+          f"over {len(vals)} of {len(ref)} tensors: worst {vals[0]:.5f} ({worst}), median "
+          f"{vals[len(vals) // 2]:.5f}; relative L2 worst {max(rel.values()):.5f} "
+          f"({max(rel, key=rel.get)})", flush=True)
+    detail[label] = dict(whole_cosine=whole, worst=vals[0], worst_tensor=worst,
+                         median=vals[len(vals) // 2], cosine=cos, relative_l2=rel)
+    return whole, vals[0], worst
+
+
+def gradient_reference(torch, seed, trained_state, detail):
+    """2 x 16^3 gradients of the card (bf16, kernels) against the same
+    weights in f32 on the CPU (plain versions), dropout off: at weights
+    initialised from ``seed``, held to ``GRAD_FRESH_MIN`` on the whole
+    vector and on every tensor, and at the trainer's weights
+    (``trained_state``), held to ``GRAD_TRAINED_MIN`` on the whole vector."""
+    from mica_tpu_torch.models.mica import MICA
+
+    inputs = _grad_inputs(torch, seed)
+
+    def agreement(state, label):
+        grads = []
+        for dtype, dev in ((torch.bfloat16, "cuda"), (torch.float32, "cpu")):
+            model = MICA(base=BASE, dtype=dtype)
+            model.load_state_dict(state)
+            grads.append(_model_grad(torch, model.to(dev), dev, inputs))
+        return _grad_agreement(torch, *grads, f"{label}, bf16 card vs f32 CPU", detail)
+
+    fresh = MICA(base=BASE, dtype=torch.float32).init_weights(torch.Generator().manual_seed(seed))
+    whole, worst, name = agreement(fresh.state_dict(), f"seed {seed} weights")
+    fail_if(not whole >= GRAD_FRESH_MIN[0],
+            f"gradient cosine {whole} < {GRAD_FRESH_MIN[0]} at the seed's weights")
+    fail_if(not worst >= GRAD_FRESH_MIN[1],
+            f"gradient of {name}: cosine {worst} < {GRAD_FRESH_MIN[1]} at the seed's weights")
+    whole, _, _ = agreement(trained_state, "trained weights")
+    fail_if(not whole >= GRAD_TRAINED_MIN,
+            f"gradient cosine {whole} < {GRAD_TRAINED_MIN} at the trained weights")
+    print(f"gradients within their limits: {GRAD_FRESH_MIN} (whole, worst tensor) at the "
+          f"seed's weights, {GRAD_TRAINED_MIN} (whole) at the trained weights", flush=True)
 
 
 def profile_train_step(torch, trainer, state, batch, detail):
@@ -656,12 +740,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--map-size", type=int, default=160)
-    ap.add_argument("--phases", default="kernels,predict,train",
-                    help="comma-separated subset of kernels, predict, train")
     ap.add_argument("--out", default="build/chip_smoke.json",
                     help="where the detailed JSON record is written")
     args = ap.parse_args()
-    phases = set(args.phases.split(","))
 
     import torch
     import torch.nn.functional as F
@@ -686,36 +767,33 @@ def main() -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = {}
-    if "kernels" in phases:
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        rows["conv3d_stats"] = check_k1(torch, F, conv3d_in, g, detail)
-        rows["in_apply"] = check_k2(torch, conv3d_in, g, detail)
-        rows["depthwise3"] = check_k3(torch, F, depthwise, g, detail)
-        rows["in_apply_ad"] = check_k4(torch, conv3d_in, g, detail)
-        rows["in_bwd_stats"], rows["in_bwd_apply"] = check_k5_k6(torch, conv3d_in, g, detail)
-        rows["depthwise3_grads"] = check_k7(torch, depthwise, g, detail)
-        torch.backends.cudnn.allow_tf32 = True
-        torch.cuda.empty_cache()
-        out.write_text(json.dumps(detail, indent=1))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows["conv3d_stats"] = check_k1(torch, F, conv3d_in, g, detail)
+    check_k1_dx(torch, F, conv3d_in, g, detail)
+    rows["in_apply"] = check_k2(torch, conv3d_in, g, detail)
+    rows["depthwise3"] = check_k3(torch, F, depthwise, g, detail)
+    rows["in_apply_ad"] = check_k4(torch, conv3d_in, g, detail)
+    rows["in_bwd_stats"], rows["in_bwd_apply"] = check_k5_k6(torch, conv3d_in, g, detail)
+    rows["depthwise3_grads"] = check_k7(torch, depthwise, g, detail)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    out.write_text(json.dumps(detail, indent=1))
 
-    if "predict" in phases:
-        predict_launches, model = main_path(torch, args, detail)
-        profile_forward(torch, model, args.seed, detail)
-        small_reference(torch, model, args.seed, detail)
-        del model
-        torch.cuda.empty_cache()
-        out.write_text(json.dumps(detail, indent=1))
+    predict_launches, model = main_path(torch, args, detail)
+    profile_forward(torch, model, args.seed, detail)
+    small_reference(torch, model, args.seed, detail)
+    del model
+    torch.cuda.empty_cache()
+    out.write_text(json.dumps(detail, indent=1))
 
-    if "train" in phases:
-        train_launches, trainer, state, batch = training_path(torch, args, detail)
-        profile_train_step(torch, trainer, state, batch, detail)
-        gradient_reference(torch, trainer, args.seed, detail)
-        out.write_text(json.dumps(detail, indent=1))
-
-    if phases != {"kernels", "predict", "train"}:
-        print(f"partial run ({args.phases}): no kernels record, no ok line", flush=True)
-        return 0
+    train_launches, trainer, state, batch = training_path(torch, args, detail)
+    profile_train_step(torch, trainer, state, batch, detail)
+    trained = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    gradient_reference(torch, args.seed, trained, detail)
+    out.write_text(json.dumps(detail, indent=1))
 
     def entry(name, route, source, replaces, launches, sites):
         """``sites``: launches of the path's run per site of ``rows[name]``,

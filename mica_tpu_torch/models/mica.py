@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv3d_in import conv3d, conv3d_in_relu, conv3d_in_relu_ad
-from ..ops.depthwise import depthwise_conv3, depthwise_conv3_ad
+from ..ops.depthwise import depthwise_conv3_ad
 
 # dropout units of one forward: the stem, (RDB, DualAttention, transition)
 # of each stage, the FPN and the heads
@@ -75,30 +75,29 @@ class Dropout:
     ``seed`` on the activations' device.  ``torch.utils.checkpoint``
     restores the default generators for a recomputation, never an explicit
     one, so a checkpointed unit builds a new ``Dropout`` from the same seed
-    and draws the same masks again.  Kept values are scaled by
-    1 / (1 - rate), the scale rounded to the activations' dtype."""
+    and draws the same masks again.  Kept values are x / (1 - rate) with
+    1 - rate rounded to x's dtype first, as flax's ``x / keep_prob`` takes
+    its Python scalar; only the quotient is rounded after that."""
 
     def __init__(self, seed: int):
         self.seed = seed
         self._gen: Optional[torch.Generator] = None
 
-    def _mask(self, shape, rate: float, like: torch.Tensor) -> torch.Tensor:
+    def _drop(self, x: torch.Tensor, shape, rate: float) -> torch.Tensor:
+        if rate == 0.0:
+            return x
         if self._gen is None:
-            self._gen = torch.Generator(device=like.device).manual_seed(self.seed)
-        keep = torch.rand(shape, generator=self._gen, device=like.device) >= rate
-        return (keep.float() / (1.0 - rate)).to(like.dtype)
+            self._gen = torch.Generator(device=x.device).manual_seed(self.seed)
+        keep = torch.rand(shape, generator=self._gen, device=x.device) >= rate
+        keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype).item()
+        return torch.where(keep, x / keep_prob, 0)
 
     def channels(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         """Dropout3d: whole channels of a sample, one (B, 1, 1, 1, C) mask."""
-        if rate == 0.0:
-            return x
-        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
-        return x * self._mask(shape, rate, x)
+        return self._drop(x, (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],), rate)
 
     def elements(self, x: torch.Tensor, rate: float) -> torch.Tensor:
-        if rate == 0.0:
-            return x
-        return x * self._mask(x.shape, rate, x)
+        return self._drop(x, x.shape, rate)
 
 
 def _unit(module: nn.Module, x: torch.Tensor, rate: float, seed: Optional[int],
@@ -307,8 +306,7 @@ class DualAttention(nn.Module):
     def forward(self, x: torch.Tensor, rate: float = 0.0, drop: Optional[Dropout] = None,
                 train: bool = False) -> torch.Tensor:
         lc = self.local_attn["0"]
-        dw = depthwise_conv3_ad if train else depthwise_conv3
-        local = torch.relu(instance_norm(dw(x, lc.weight, lc.bias)))
+        local = torch.relu(instance_norm(depthwise_conv3_ad(x, lc.weight, lc.bias)))
         g = torch.relu(self.global_attn["1"](global_avg_pool(x)))
         if drop is not None:
             local = drop.channels(local, rate)

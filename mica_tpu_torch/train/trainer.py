@@ -109,14 +109,13 @@ class Trainer:
     def __init__(self, base_filters: int = 64, lr: float = 1e-4,
                  dtype: torch.dtype = torch.bfloat16, label_smoothing: float = 0.0,
                  exp_only_prob: float = 0.4, use_augmentation: bool = True,
-                 seed: int = 2022, remat: bool = True, microbatch: Optional[int] = None,
-                 device=None):
+                 seed: int = 2022, microbatch: Optional[int] = None, device=None):
         """``device`` None means the card (raises where there is none); the
         CPU runs the kernels' plain versions.  On the card the compute
         dtype must be bf16."""
         self.device = resolve_device(device)
         self.seed = seed
-        self.model = MICA(base=base_filters, dtype=dtype, remat=remat).to(self.device)
+        self.model = MICA(base=base_filters, dtype=dtype, remat=True).to(self.device)
         self.scheduler = PlateauScheduler(lr)
         self.label_smoothing = label_smoothing
         self.exp_only_prob = exp_only_prob

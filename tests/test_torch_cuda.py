@@ -10,7 +10,8 @@ Tolerance: 1e-2 of the largest reference value (one bf16 rounding of
 the output is 2^-9 relative), statistics 1e-4 relative (f32 sums in
 another order, with atomics).  K4 and K6 are bitwise equal to their bf16
 plain versions; K5's and K7's f32 sums stay within 1e-5 of the sum of
-the terms' magnitudes.
+the terms' magnitudes.  ``Conv3dInReluFn``'s output and gradients stay
+within 1e-2 relative L2 of the same function run on the CPU.
 """
 
 import pytest
@@ -136,6 +137,34 @@ def test_depthwise_grads_matches_plain(gen, shape):
     mag = depthwise.depthwise_grads_plain(x.abs(), g.abs())
     assert got.shape == (28, shape[-1])
     assert ((got - want).abs() <= 1e-5 * mag + 1e-4).all()
+
+
+@pytest.mark.parametrize("cis,co", [([64], 32), ([64, 32], 32), ([64, 32, 32], 64),
+                                    ([32], 128)])
+def test_conv3d_in_relu_ad_backward_matches_plain(gen, cis, co):
+    """y, dx per part (K1 on the swapped geometry, Co -> sum Ci) and dk of
+    ``Conv3dInReluFn`` on the card against the same function on the CPU,
+    where every wrapper runs its plain version, from the same bf16 inputs
+    and upstream gradient: relative L2 within 1e-2 (roundings flip where
+    f32 sums run in another order)."""
+    from mica_tpu_torch.ops import conv3d_in
+
+    parts = [torch.randn(2, 8, 8, 8, c, device="cuda", generator=gen).to(torch.bfloat16)
+             for c in cis]
+    w = torch.randn(co, sum(cis), 3, 3, 3, device="cuda", generator=gen) * 0.05
+    b = torch.randn(co, device="cuda", generator=gen)
+    dy = torch.randn(2, 8, 8, 8, co, device="cuda", generator=gen)
+    got = []
+    for dev in ("cuda", "cpu"):
+        # fresh leaves on each side (``to`` returns the same tensor on its own device)
+        *ps, wd, bd = [t.to(dev).detach().requires_grad_() for t in parts + [w, b]]
+        y = conv3d_in.conv3d_in_relu_ad(ps, wd, bd)
+        (y.float() * dy.to(dev)).sum().backward()
+        got.append([t.detach().float().cpu() for t in [y, wd.grad] + [p.grad for p in ps]])
+        assert torch.count_nonzero(bd.grad) == 0
+    for a, want in zip(*got):
+        assert a.shape == want.shape
+        assert (a - want).norm() <= 1e-2 * want.norm(), ((a - want).norm() / want.norm()).item()
 
 
 def test_autograd_fns_launch_their_kernels(gen):

@@ -215,6 +215,21 @@ def test_dropout_statistics(rate):
     assert torch.equal(Dropout(7).channels(x, rate), Dropout(7).channels(x, rate))
 
 
+@pytest.mark.parametrize("rate", [0.005, 0.01, 0.02, 0.1])
+def test_dropout_scales_kept_values_as_flax_in_bf16(rng, rate):
+    """Kept bf16 values equal flax's ``x / keep_prob`` on the same bf16
+    values bitwise; dropped ones are 0."""
+    x = rng.normal(size=(4, 3, 3, 3, 64)).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    want = torch.from_numpy(np.asarray(
+        (jnp.asarray(x, jnp.bfloat16) / (1.0 - rate)).astype(jnp.float32)))
+    for y in (Dropout(3).channels(xb, rate), Dropout(4).elements(xb, rate)):
+        assert y.dtype == torch.bfloat16
+        kept = y != 0
+        assert kept.any()
+        assert torch.equal(y.float()[kept], want[kept])
+
+
 # ---------------------------------------------------------------------------
 # the model's gradients
 # ---------------------------------------------------------------------------
@@ -276,6 +291,47 @@ def test_model_value_and_grad_matches_jax(jax_params):
         assert cos > 0.999 and rel < rel_tol, (k, cos, rel)
         n_compared += 1
     assert n_compared > 90
+
+
+def _cosines(got, ref):
+    """Whole-vector cosine and the median per-tensor cosine over the
+    tensors above 1e-4 of the largest reference norm."""
+    a = np.concatenate([got[k] for k in ref])
+    r = np.concatenate(list(ref.values()))
+    gmax = max(np.linalg.norm(v) for v in ref.values())
+    per = [float(got[k] @ v / (np.linalg.norm(got[k]) * np.linalg.norm(v)))
+           for k, v in ref.items() if np.linalg.norm(v) >= 1e-4 * gmax]
+    return float(a @ r / (np.linalg.norm(a) * np.linalg.norm(r))), float(np.median(per))
+
+
+def test_bf16_gradient_no_farther_from_f32_than_jax(jax_params):
+    """bf16 rounding alone moves a gradient at fresh weights far from the
+    f32 one (whole-vector cosine ~0.85-0.9 at 2 x 16^3).  The port's bf16
+    gradient is at least as close to its f32 gradient as the JAX package's
+    bf16 gradient is to its own, whole and per tensor (median)."""
+    x, af, tgt = _grad_inputs()
+    lam = jloss.task_lambdas(0)
+    grads = {}
+    for dt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        def loss_j(p):
+            outs = JaxMICA(base=BASE, dtype=jdt).apply(
+                {"params": p}, jnp.asarray(x), jnp.asarray(af), dropout_rate=0.0, train=True,
+                rngs={"dropout": jax.random.PRNGKey(0)})
+            return jloss.multi_task_loss(outs, tuple(jnp.asarray(t) for t in tgt),
+                                         jnp.asarray(lam))[0]
+
+        g = jax.jit(jax.grad(loss_j))(jax_params)
+        grads["jax", dt] = {k: v.numpy().astype(np.float64).ravel()
+                            for k, v in state_dict_from_jax_params(g).items()}
+        model = MICA(base=BASE, dtype=dt)
+        model.load_state_dict(state_dict_from_jax_params(jax_params), strict=True)
+        loss.multi_task_loss(model(_t(x), _t(af), train=True), tuple(_t(t) for t in tgt),
+                             lam)[0].backward()
+        grads["port", dt] = {k: p.grad.numpy().astype(np.float64).ravel()
+                             for k, p in model.named_parameters()}
+    ours = _cosines(grads["port", torch.bfloat16], grads["port", torch.float32])
+    ref = _cosines(grads["jax", torch.bfloat16], grads["jax", torch.float32])
+    assert ours[0] >= ref[0] and ours[1] >= ref[1], (ours, ref)
 
 
 def test_custom_backward_matches_autograd_of_the_plain_forward():
