@@ -10,15 +10,26 @@ Phases, each printing what it found; any failure ends the run non-zero:
      source, all at once);
   3. hold every kernel against its plain PyTorch version at the shapes of
      its path (batch 8, 64^3 windows, the widths of MICA at base 64; for
-     K1 also every dx geometry of a training step), in f32 from the same
-     bf16 inputs, and time kernel, plain version and one library call (a
+     K1 also every dx geometry of a training step; K8 also at an odd
+     size; K9/K10 with and without the AF words, at unaligned starts and
+     with a skipped tail), in f32 from the same bf16 inputs (K9/K10: to
+     the bit), and time kernel, plain version and one library call (a
      yardstick the port never calls);
   4. the prediction path: ``predict_map`` on a synthetic map written to an
      MRC, with a docked model for the AF3 encoding, random weights from
      ``--seed``, bf16, batch 8, core 48 / halo 8; the launch counts of
      that run alone; a profile of one batch forward; then a small window
      batch against the f32 network on the CPU;
-  5. the training path: ``Trainer`` at base 64, bf16, batch 8 of 64^3
+  5. the modelling path: a synthetic scenario (map, FASTA, AF3 template,
+     docked model) written to disk and the ``Solver`` behind
+     ``mica_tpu_torch.cli.run`` driven on it at the same width:
+     ``check_seq``, prediction with the volumes kept on the card, device
+     candidate extraction on them (random weights: only what it returned
+     is recorded), the launch counts of that run alone; then, from the
+     scenario's perfect volumes put on the card, device extraction held
+     against the host's, fragments, AF3 alignment, the initial model and
+     gap filling, and the CA model held against the scenario's chain;
+  6. the training path: ``Trainer`` at base 64, bf16, batch 8 of 64^3
      ``synthetic_batch`` windows, recomputation and augmentation on, the
      epoch-0 dropout rate; 2 warm-up and 5 timed steps with the launch
      counts of those 5 alone; 8 steps on one fixed batch whose loss must
@@ -81,15 +92,19 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float):
 
 def _counters():
     """The kernel wrappers' launch counts (module dicts, mutable)."""
-    from mica_tpu_torch.ops import conv3d_in, depthwise
+    from mica_tpu_torch.ops import conv3d_in, depthwise, stem, window_copy
 
-    return conv3d_in.launches, depthwise.launches
+    return conv3d_in.launches, depthwise.launches, stem.launches, window_copy.launches
 
 
 def _reset_counts():
     for counts in _counters():
         for k in counts:
             counts[k] = 0
+
+
+def _read_counts() -> dict:
+    return {k: v for counts in _counters() for k, v in counts.items()}
 
 
 def k1_sites_of(base: int = BASE):
@@ -401,6 +416,166 @@ def check_k7(torch, depthwise, g, detail):
     return rows
 
 
+def check_k8(torch, F, g, detail):
+    """K8 at the main path's shape and at an odd size against the plain 9^3
+    conv in f32 from the same bf16 inputs.  Tolerance 1e-2 of the largest
+    reference value: 729 f32 products summed in another order, then one bf16
+    rounding of the output (2^-9 relative)."""
+    from mica_tpu_torch.models.mica import _fold_kernel_s2d, _fold_s2d, _unfold_s2d
+    from mica_tpu_torch.ops import stem
+
+    c = 2 * BASE
+    rows = []
+    for shape in ((BATCH, WIN, WIN, WIN), (2, 33, 35, 37)):
+        x = torch.randn(*shape, device="cuda", generator=g).to(torch.bfloat16)
+        ws = [torch.randn(c // 4, 1, k, k, k, device="cuda", generator=g) * k ** -1.5
+              for k in (3, 5, 7, 9)]
+        bias = torch.randn(c, device="cuda", generator=g) * 0.1
+        packed = stem.pack_weight(stem.combine_weights(ws), torch.bfloat16)
+        want = stem.stem_conv_plain(x.float(), packed.float(), bias)
+        got = stem.stem_conv(x, packed, bias)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        tol = 1e-2 * want.abs().max().item()
+        site = "x".join(str(v) for v in shape)
+        fail_if(not err <= tol, f"K8 {site}: err {err} > {tol}")
+        del want, got
+        # the function's operations: each of the four c/4-channel convs
+        # has k^3 taps a voxel (39168 MACs at C 128).  The kernel itself
+        # multiplies 832 taps for every channel, zeros included: that is a
+        # loss of the design, not work the bound counts
+        m = x.numel()
+        flops = 2.0 * m * sum(w.shape[0] * w.shape[-1] ** 3 for w in ws)
+        mma_flops = 2.0 * m * stem.K_PACKED * c
+        nbytes = 2.0 * m + 2.0 * m * c + 2.0 * packed.numel() + 4.0 * c
+        bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+        ms = cuda_ms(lambda: stem.stem_conv(x, packed, bias), reps=5)
+        plain = cuda_ms(lambda: stem.stem_conv_plain(x, packed, bias), reps=1)
+        # the library conv this kernel took the place of, in TF32 as the
+        # model ran it: the space-to-depth form at even sizes, else the 9^3
+        xin = x.float()[:, None]
+        w9 = stem.unpack_weight(packed).float()
+        if all(v % 2 == 0 for v in shape[1:]):
+            wf = _fold_kernel_s2d(w9)
+            conv = lambda: _unfold_s2d(F.conv3d(_fold_s2d(xin), wf, padding=2))  # noqa: E731
+            lib_name = "TF32 s2d conv3d"
+        else:
+            conv = lambda: F.conv3d(xin, w9, padding=4)  # noqa: E731
+            lib_name = "TF32 9^3 conv3d"
+        torch.backends.cudnn.allow_tf32 = True
+        lib = cuda_ms(lambda: (conv().permute(0, 2, 3, 4, 1) + bias).to(torch.bfloat16))
+        torch.backends.cudnn.allow_tf32 = False
+        rows.append(dict(site=site, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=bnd, bound_by=by, tflops=flops / ms / 1e9,
+                         mma_tflops=mma_flops / ms / 1e9))
+        print(f"K8 {site} -> C={c}: max_abs_err {err:.3e} (tol {tol:.3e}); time {ms:.3f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s of the function's {flops:.4e} operations, "
+              f"{mma_flops / ms / 1e9:.1f} TFLOP/s issued with the zero taps), plain {plain:.3f} "
+              f"ms, {lib_name} {lib:.3f} ms, bound {bnd:.3f} ms ({by})", flush=True)
+        del x, xin
+        torch.cuda.empty_cache()
+    detail["stem9"] = rows
+    return rows
+
+
+def check_k9_k10(torch, g, seed, detail):
+    """K9 and K10 at the engine's geometry on a 160^3 map (4 cores of 48 an
+    axis: volumes 192^3, the padded map 208^3), n 8, w 64, c 48, A 20, to
+    the bit against their plain versions: with and without the AF words, at
+    the engine's aligned starts (timed) and at arbitrary ones, and with a
+    tail that must be neither read nor written."""
+    from mica_tpu_torch.ops import window_copy as wc
+
+    n, w, c, a, per_axis = BATCH, WIN, 48, 20, 4
+    vol, ext = per_axis * c, per_axis * c + (w - c)
+    rng = np.random.default_rng(seed + 4)
+    grid = c * np.stack(np.meshgrid(*[np.arange(per_axis)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    starts = grid[rng.choice(len(grid), n, replace=False)]
+    host = [tuple(r) for r in starts.tolist()]
+    pm = torch.rand((ext,) * 3, device="cuda", generator=g)
+    pa = torch.randint(0, 2 ** 24, (ext,) * 3, device="cuda", generator=g, dtype=torch.int32)
+
+    def worst(got, want):
+        """Largest |difference| over the tensors of ``got`` and ``want``, in
+        f64 (the AF words are integers); a nan counts as infinite."""
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        return max((x.double() - y.double()).abs().nan_to_num(nan=math.inf).max().item()
+                   for x, y in zip(got, want))
+
+    rows9 = []
+    for with_af in (True, False):
+        af = pa if with_af else None
+        site = "af" if with_af else "no_af"
+        err = 0.0
+        for label, pts in (("aligned", starts),
+                           ("unaligned", rng.integers(0, ext - w + 1, size=(n, 3)))):
+            st = wc.starts_tensor(pts, pm.shape, w, "cuda")
+            err = max(err, worst(wc.gather_windows(pm, af, st, w),
+                                 wc.gather_windows_plain(pm, af, st, w)))
+            fail_if(err != 0.0, f"K9 {site}, {label} starts: differs from its plain version "
+                                f"by {err}")
+        st = wc.starts_tensor(starts, pm.shape, w, "cuda")
+        srcs = (pm, pa) if with_af else (pm,)
+        nbytes = 2.0 * 4 * n * w ** 3 * len(srcs) + 12.0 * n
+        bnd, by = bound_ms(0.0, nbytes, PEAK_F32)
+        ms = cuda_ms(lambda: wc.gather_windows(pm, af, st, w), reps=20)
+        plain = cuda_ms(lambda: wc.gather_windows_plain(pm, af, st, w), reps=5)
+        lib = cuda_ms(lambda: [torch.stack([s[x:x + w, y:y + w, z:z + w] for x, y, z in host])
+                               for s in srcs], reps=5)
+        rows9.append(dict(site=site, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                          bound_ms=bnd, bound_by=by, gbytes_per_s=nbytes / ms / 1e6))
+        print(f"K9 {site} (n {n}, w {w}, map {ext}^3): bitwise equal at aligned and unaligned "
+              f"starts; time {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain {plain:.4f} ms, "
+              f"torch.stack of slices {lib:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+
+    vols = (torch.rand((vol,) * 3, device="cuda", generator=g),
+            torch.rand((vol,) * 3, device="cuda", generator=g),
+            torch.rand((vol,) * 3 + (a,), device="cuda", generator=g))
+    cores = (torch.rand((n, c, c, c), device="cuda", generator=g),
+             torch.rand((n, c, c, c), device="cuda", generator=g),
+             torch.rand((n, c, c, c, a), device="cuda", generator=g))
+    st = wc.starts_tensor(starts, vols[0].shape, c, "cuda")
+    rows10 = []
+    for site, n_valid in (("full", n), ("tail", n - 3)):
+        blocks = tuple(t.clone() for t in cores)
+        for t in blocks:
+            t[n_valid:] = float("nan")      # a skipped entry is not read
+        # unaligned cores must not overlap either: distinct cells of a
+        # 3-per-axis grid, all shifted by the same 1..3 voxels
+        cells = np.stack(np.unravel_index(rng.choice(27, n, replace=False), (3, 3, 3)), -1)
+        err = 0.0
+        for label, pts in (("aligned", starts),
+                           ("unaligned", c * cells + rng.integers(1, 4, size=3))):
+            stp = wc.starts_tensor(pts, vols[0].shape, c, "cuda")
+            want = wc.scatter_cores_plain(tuple(v.clone() for v in vols), blocks, stp, n_valid, c)
+            got = wc.scatter_cores(tuple(v.clone() for v in vols), blocks, stp, n_valid, c)
+            err = max(err, worst(got, want))
+            fail_if(err != 0.0, f"K10 {site}, {label} starts: differs from its plain version "
+                                f"by {err}")
+            fail_if(any(bool(torch.isnan(t).any()) for t in got), f"K10 {site}: read its tail")
+        nbytes = 2.0 * 4 * n_valid * c ** 3 * (2 + a) + 12.0 * n_valid
+        bnd, by = bound_ms(0.0, nbytes, PEAK_F32)
+        ms = cuda_ms(lambda: wc.scatter_cores(vols, blocks, st, n_valid, c), reps=20)
+        plain = cuda_ms(lambda: wc.scatter_cores_plain(vols, blocks, st, n_valid, c), reps=5)
+
+        def lib_paste():
+            for i, (x, y, z) in enumerate(host[:n_valid]):
+                for v, blk in zip(vols, blocks):
+                    v[x:x + c, y:y + c, z:z + c] = blk[i]
+
+        lib = cuda_ms(lib_paste, reps=5)
+        rows10.append(dict(site=site, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                           bound_ms=bnd, bound_by=by, gbytes_per_s=nbytes / ms / 1e6))
+        print(f"K10 {site} (n {n}, n_valid {n_valid}, c {c}, A {a}, volumes {vol}^3): bitwise "
+              f"equal at aligned and unaligned starts, tail untouched; time {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain:.4f} ms, slice assignments "
+              f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+    detail["gather_windows"], detail["scatter_cores"] = rows9, rows10
+    del pm, pa, vols, cores
+    torch.cuda.empty_cache()
+    return rows9, rows10
+
+
 def synthetic_inputs(tmp: Path, n: int, seed: int):
     """A blob-density map (n^3 at 1 A, density in a central ball, empty
     corners) and a docked model of random residues on the blobs."""
@@ -437,8 +612,6 @@ def synthetic_inputs(tmp: Path, n: int, seed: int):
 def main_path(torch, args, detail):
     from mica_tpu_torch.infer.pipeline import predict_map
     from mica_tpu_torch.models.mica import MICA
-    from mica_tpu_torch.ops import conv3d_in, depthwise
-
     model = MICA(base=BASE).init_weights(torch.Generator().manual_seed(args.seed))
     with tempfile.TemporaryDirectory() as tmp:
         map_path, pdb_path = synthetic_inputs(Path(tmp), args.map_size, args.seed)
@@ -448,7 +621,7 @@ def main_path(torch, args, detail):
                           batch_size=BATCH, dtype=torch.bfloat16, base_filters=BASE,
                           core=48, halo=8)
         wall = time.time() - t0
-        launches = {**conv3d_in.launches, **depthwise.launches}
+        launches = _read_counts()
     timing = out["timing"]
     n = args.map_size
     for key in ("backbone_probability", "carbon_alpha_probability"):
@@ -460,23 +633,163 @@ def main_path(torch, args, detail):
     fail_if(aa.shape != (20, n, n, n) or not np.isfinite(aa).all(), "aa volume bad")
     aa_sum_err = float(np.abs(aa.sum(axis=0) - 1.0).max())
     fail_if(aa_sum_err > 1e-4, f"aa probabilities sum to 1 +- {aa_sum_err}")
+    computed = check_predict_launches(launches, timing)
     fw = timing["n_forwards"]
-    per_forward = {"conv3d_stats": 13, "in_apply": 12, "depthwise3": 3}
-    for k, per in per_forward.items():
-        fail_if(launches[k] != per * fw,
-                f"{k}: {launches[k]} launches for {fw} forwards, expected {per * fw}")
-    computed = timing["n_windows"] - timing["n_empty"]
     wps = computed / timing["inference"]
     print(f"main path: map {n}^3, {timing['n_windows']} windows, {timing['n_empty']} empty, "
           f"{computed} computed in {fw} forwards (one is the all-zero window); "
           f"{wps:.3f} windows/s over the inference phase; predict_map wall {wall:.3f} s",
           flush=True)
     print(f"timing {json.dumps(timing)}", flush=True)
-    print(f"launches {json.dumps(launches)} (13/12/3 per forward)", flush=True)
+    print(f"launches {json.dumps(launches)} (K1/K2/K3/K8 13/12/3/1 per forward, K9/K10 1 per "
+          "computed batch)", flush=True)
     print(f"volumes finite, bb/ca in [0, 1], aa sums to 1 within {aa_sum_err:.2e}", flush=True)
     detail["main_path"] = dict(timing=timing, launches=launches, windows_per_s=wps,
                                wall_s=wall, map_size=n)
     return launches, model
+
+
+def check_predict_launches(launches: dict, timing: dict) -> int:
+    """The launch gate of one ``predict_volume`` run in core blend with a
+    packed AF encoding: K1/K2/K3/K8 13/12/3/1 per forward, K9 and K10 one
+    per computed batch (the all-zero window's forward needs neither), no
+    training kernel.  Returns the number of computed windows."""
+    fw = timing["n_forwards"]
+    computed = timing["n_windows"] - timing["n_empty"]
+    batches = -(-computed // BATCH)
+    fail_if(fw != batches + 1, f"{fw} forwards for {batches} batches and the all-zero window")
+    want = {"conv3d_stats": 13 * fw, "in_apply": 12 * fw, "depthwise3": 3 * fw, "stem9": fw,
+            "gather_windows": batches, "scatter_cores": batches}
+    for k, v in launches.items():
+        fail_if(v != want.get(k, 0), f"{k}: {v} launches for {fw} forwards and {batches} "
+                                     f"batches, expected {want.get(k, 0)}")
+    return computed
+
+
+N_RES = 400     # residues of the modelling scenario's chain
+
+
+def modelling_path(torch, args, model, detail):
+    """Map + FASTA + AF3 template + docked model on disk -> CA model, through
+    the ``Solver`` that ``mica_tpu_torch.cli.run`` builds from its flags, on
+    the card.  Returns the launch counts of prediction and extraction on
+    the predicted volumes."""
+    from mica_tpu_torch.cli import run as cli_run
+    from mica_tpu_torch.io import pdb as pdb_io
+    from mica_tpu_torch.io.mrc import write_mrc
+    from mica_tpu_torch.trace.candidates import extract_candidates
+    from mica_tpu_torch.trace.candidates_device import extract_candidates_device
+    from mica_tpu_torch.utils.synthetic import make_scenario, random_rigid
+
+    n = args.map_size
+    ca, seq, perfect = make_scenario(n_res=N_RES, shape=(n, n, n), seed=args.seed)
+    res3 = [pdb_io.ONE_TO_THREE.get(ch, "ALA") for ch in seq]
+    keys = ("carbon_alpha_probability", "backbone_probability", "amino_acid_probability")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        inp = root / "input"
+        template = inp / "AF3_structures" / "synth"
+        template.mkdir(parents=True)
+        # the density is the protein-shaped backbone volume; the template
+        # is the chain moved rigidly, the docked model the chain in place
+        write_mrc(root / "emd_0001.mrc",
+                  np.transpose(perfect["backbone_probability"], (2, 1, 0)), voxel_size=1.0)
+        (root / "0001.fasta").write_text(f">synth|Chains A\n{seq}\n")
+        rot, shift = random_rigid(args.seed + 7)
+        pdb_io.write_ca_pdb(template / "ranked_0.pdb", [ca @ rot.T + shift],
+                            res_names_by_chain=[res3])
+        pdb_io.write_ca_pdb(inp / "input_af3_docked.pdb", [ca], res_names_by_chain=[res3])
+        # the solver as ``cli.run.main`` builds it from its flags (core 48,
+        # halo 8 and bf16 are its defaults), the weights read from a .pth
+        torch.save({"model_state_dict": model.state_dict()}, root / "weights.pth")
+        sol = cli_run.build_solver(cli_run.build_parser().parse_args([
+            "-m", str(root / "emd_0001.mrc"), "-f", str(root / "0001.fasta"), "-i", str(inp),
+            "-o", str(root / "out"), "--model_path", str(root / "weights.pth"),
+            "--batch_size", str(BATCH), "--base_filters", str(BASE), "--seed", str(args.seed)]))
+        cfg = sol.config
+        fail_if((cfg.protocol, cfg.window_core, cfg.window_halo, cfg.dtype, cfg.device)
+                != ("AF3_struct", 48, 8, torch.bfloat16, "cuda"), f"unexpected config {cfg}")
+        res = sol.check_seq()
+        fail_if(res != "success", f"check_seq: {res}")
+
+        # the network stage and extraction on what it predicted
+        _reset_counts()
+        sol.predict()
+        stats = {}
+        t0 = time.time()
+        found = extract_candidates_device(*(sol.volumes[k] for k in keys), stats=stats)
+        torch.cuda.synchronize()
+        extract_s = time.time() - t0
+        launches = _read_counts()
+        vols, timing = sol.volumes, sol.predictor_timing
+        fail_if(sol.prepared.volume.shape != (n, n, n), f"map {sol.prepared.volume.shape}")
+        for k, v in vols.items():
+            fail_if(not (isinstance(v, torch.Tensor) and v.is_cuda), f"{k} left the card")
+        for k in keys[:2]:
+            v = vols[k]
+            fail_if(tuple(v.shape) != (n, n, n), f"{k} shape {tuple(v.shape)}")
+            fail_if(not bool(torch.isfinite(v).all()), f"{k} not finite")
+            fail_if(not (v.min().item() >= 0 and v.max().item() <= 1), f"{k} outside [0, 1]")
+        aa = vols["amino_acid_probability"]
+        fail_if(tuple(aa.shape) != (20, n, n, n) or not bool(torch.isfinite(aa).all()),
+                "aa volume bad")
+        aa_sum_err = (aa.sum(dim=0) - 1.0).abs().max().item()
+        fail_if(aa_sum_err > 1e-4, f"aa probabilities sum to 1 +- {aa_sum_err}")
+        pred = vols["amino_acid_prediction"]
+        fail_if(not (pred.min().item() >= 0 and pred.max().item() <= 19), "aa prediction bad")
+        computed = check_predict_launches(launches, timing)
+        kept_bytes = sum(v.numel() * v.element_size() for v in vols.values())
+        print(f"modelling path: map {n}^3, chain of {N_RES} residues; getData "
+              f"{sol.time_cost['getData']:.3f} s, nnPred {sol.time_cost['nnPred']:.3f} s "
+              f"({computed} windows computed in {timing['n_forwards']} forwards, "
+              f"{computed / timing['inference']:.3f} windows/s over the inference phase); the "
+              f"four volumes stay on the card: {kept_bytes} bytes not copied to the host",
+              flush=True)
+        print(f"  launches {json.dumps(launches)}", flush=True)
+        print(f"  device extraction on the predicted volumes (random weights): "
+              + ("None (over a cap), " if found is None else f"{len(found['coords'])} "
+                 "candidates, ") + f"{extract_s:.3f} s, stats {json.dumps(stats)}", flush=True)
+        detail["modelling_predict"] = dict(
+            time_cost=dict(sol.time_cost), timing=timing, launches=launches,
+            kept_on_device_bytes=kept_bytes, extraction_s=extract_s, extraction_stats=stats,
+            extraction_candidates=None if found is None else len(found["coords"]))
+
+        # the modelling stages from the scenario's perfect volumes on the card
+        sol.set_volumes({k: torch.from_numpy(v).cuda() for k, v in perfect.items()},
+                        prepared=sol.prepared)
+        # ``Solver.run`` is ``check_seq``, ``predict`` and this call
+        sol.extraction_stats = {}
+        res = sol.model_from_volumes()
+        fail_if(res != "success", f"model_from_volumes: {res}")
+        t0 = time.time()
+        host = extract_candidates(*(perfect[k] for k in keys), perfect["amino_acid_prediction"],
+                                  cluster_method="morphology")
+        host_s = time.time() - t0
+        fail_if(not sol.extraction_stats.get("n_candidates"),
+                "the device extraction did not run or found nothing")
+        fail_if(len(sol.cands) != len(host), f"{len(sol.cands)} candidates, host {len(host)}")
+        fail_if(not np.array_equal(sol.cands.aa_pred, host.aa_pred),
+                "device candidates differ from the host's in order or prediction")
+        d_xyz = float(np.abs(sol.cands.coords - host.coords).max())
+        d_aa = float(np.abs(sol.cands.aa_prob - host.aa_prob).max())
+        fail_if(d_xyz > 1e-12 or d_aa > 1e-12, f"device candidates off by {d_xyz}, {d_aa}")
+        placed = pdb_io.select(pdb_io.parse_pdb(sol.ca_model_path), name="CA")
+        fail_if(not len(placed) > 0.6 * len(ca), f"{len(placed)} of {len(ca)} residues placed")
+        dist = np.linalg.norm(pdb_io.coords(placed)[:, None, :] - ca[None, :, :],
+                              axis=-1).min(axis=1)
+        median = float(np.median(dist))
+        fail_if(not median < 1.5, f"median distance to the chain {median} A")
+    print(f"  perfect volumes on the card: {len(sol.cands)} candidates, equal to the host "
+          f"extraction in order and prediction, coords within {d_xyz:.1e}, aa within "
+          f"{d_aa:.1e} (tol 1e-12); device {sol.time_cost['clustering']:.3f} s "
+          f"({json.dumps(sol.extraction_stats)}), host {host_s:.3f} s", flush=True)
+    print(f"  stages (s): {json.dumps(sol.time_cost)}", flush=True)
+    print(f"  CA model: {len(placed)} of {len(ca)} residues placed (> 60 %), median distance "
+          f"to the chain {median:.3f} A (< 1.5)", flush=True)
+    detail["modelling"] = dict(time_cost=dict(sol.time_cost), extraction_stats=sol.extraction_stats,
+                               host_extraction_s=host_s, placed=int(len(placed)),
+                               residues=int(len(ca)), median_distance=median)
+    return launches
 
 
 def small_reference(torch, model, seed, detail):
@@ -537,7 +850,7 @@ def profile_forward(torch, model, seed, detail):
     per_kernel = _device_times(prof)
     busy = sum(per_kernel.values())
     groups = {"conv3d_stats (K1)": "conv3d_stats_kernel", "in_apply (K2)": "in_apply_kernel",
-              "depthwise3 (K3)": "depthwise3_kernel"}
+              "depthwise3 (K3)": "depthwise3_kernel", "stem9 (K8)": "stem9_kernel"}
     shares = {}
     for label, pat in groups.items():
         shares[label] = sum(v for k, v in per_kernel.items() if pat in k)
@@ -586,7 +899,7 @@ def training_path(torch, args, detail):
     mets = [trainer.train_step(state, batch, lambdas, rate) for _ in range(steps)]
     torch.cuda.synchronize()
     step_ms = (time.time() - t0) / steps * 1e3
-    counts = {k: v for c in _counters() for k, v in c.items()}
+    counts = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = [float(m["total_loss"]) for m in mets]
     norms = [float(m["gradient_norm"]) for m in mets]
@@ -600,7 +913,8 @@ def training_path(torch, args, detail):
     fail_if(not all(math.isfinite(v) for v in losses + norms), "training loss or norm not finite")
     for k, want in TRAIN_PER_STEP.items():
         fail_if(per_step[k] != want, f"{k}: {per_step[k]} launches per step, expected {want}")
-    fail_if(counts["in_apply"] != 0, "training launched the inference-only K2")
+    for k in ("in_apply", "stem9", "gather_windows", "scatter_cores"):
+        fail_if(counts[k] != 0, f"training launched the inference-only {k}")
     launches = {k: counts[k] for k in TRAIN_KERNELS}
 
     # one fixed batch, no augmentation or blanking: the loss must fall
@@ -776,6 +1090,8 @@ def main() -> int:
     rows["in_apply_ad"] = check_k4(torch, conv3d_in, g, detail)
     rows["in_bwd_stats"], rows["in_bwd_apply"] = check_k5_k6(torch, conv3d_in, g, detail)
     rows["depthwise3_grads"] = check_k7(torch, depthwise, g, detail)
+    rows["stem9"] = check_k8(torch, F, g, detail)
+    rows["gather_windows"], rows["scatter_cores"] = check_k9_k10(torch, g, args.seed, detail)
     torch.backends.cudnn.allow_tf32 = True
     torch.cuda.empty_cache()
     out.write_text(json.dumps(detail, indent=1))
@@ -783,6 +1099,9 @@ def main() -> int:
     predict_launches, model = main_path(torch, args, detail)
     profile_forward(torch, model, args.seed, detail)
     small_reference(torch, model, args.seed, detail)
+    out.write_text(json.dumps(detail, indent=1))
+
+    model_launches = modelling_path(torch, args, model, detail)
     del model
     torch.cuda.empty_cache()
     out.write_text(json.dumps(detail, indent=1))
@@ -830,9 +1149,19 @@ def main() -> int:
               "mica_tpu/ops/wino_pallas.py:582", train_launches, K56_PER_STEP),
         entry("depthwise3_grads", "cuda", "mica_tpu_torch/csrc/depthwise3_grads.cu",
               "mica_tpu/ops/depthwise_pallas.py:233", train_launches, K7_PER_STEP),
+        # K8: ms per forward; K9, K10: ms per batch; launches of the
+        # modelling path's run
+        entry("stem9", "cuda", "mica_tpu_torch/csrc/stem9.cu",
+              "mica_tpu/ops/stem_pallas.py:91", model_launches,
+              {f"{BATCH}x{WIN}x{WIN}x{WIN}": 1}),
+        entry("gather_windows", "cuda", "mica_tpu_torch/csrc/window_copy.cu",
+              "mica_tpu/ops/window_dma.py:94", model_launches, {"af": 1}),
+        entry("scatter_cores", "cuda", "mica_tpu_torch/csrc/window_copy.cu",
+              "mica_tpu/ops/window_dma.py:153", model_launches, {"full": 1}),
     ]
     detail["kernels"] = kernels
-    detail["launches"] = {"predict": predict_launches, "train": train_launches}
+    detail["launches"] = {"predict": predict_launches, "model": model_launches,
+                          "train": train_launches}
     out.write_text(json.dumps(detail, indent=1))
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,12 +3,17 @@
 Port of ``mica_tpu/infer/engine.py`` without the mesh, sharding and
 chunked dispatch.  The padded map stays on the device; each batch
 
-  1. slices its 64^3 windows (density + bit-packed 24-channel AF3
-     encoding, unpacked on the device) out of the padded volumes,
+  1. gathers its 64^3 windows (density + bit-packed 24-channel AF3
+     encoding, unpacked on the device) out of the padded volumes: K9,
   2. runs the MICA forward (bf16 by default),
   3. slices the logits to the 48^3 core and applies the softmax
      post-process (the aa head slices inside the model, before its 1x1),
-  4. writes each core into the output volumes (cores tile the volume).
+  4. writes each core into the output volumes (cores tile the volume): K10.
+
+The window starts go to the device once per map.  Average blend
+accumulates overlapping windows and a fractional AF3 encoding cannot be
+bit-packed; neither is what K9/K10 compute, so those two modes move their
+windows with torch slices.
 
 All-zero windows give identical outputs, so in core blend the volumes
 start as a tiling of the all-zero window's core and only nonempty windows
@@ -28,6 +33,7 @@ from ..device import resolve_device
 from ..models.convert import state_dict_from_jax_params
 from ..models.mica import MICA
 from ..ops.window import CORE, HALO, window_counts, window_starts
+from ..ops.window_copy import gather_windows, scatter_cores, starts_tensor
 
 NUM_AA = 20
 NUM_AF_CHANNELS = 24
@@ -174,12 +180,15 @@ class SlidingWindowPredictor:
         return self._zero_cores[key]
 
     def predict_volume(self, volume: np.ndarray,
-                       af_encoding: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+                       af_encoding: Optional[np.ndarray] = None,
+                       keep_on_device: bool = False) -> Dict:
         """Predict BB/CA/AA volumes for a normalized ``volume[x, y, z]``;
         ``af_encoding`` is (24, X, Y, Z) or None.  Returns
         ``backbone_probability``, ``carbon_alpha_probability`` (X,Y,Z),
         ``amino_acid_probability`` (20,X,Y,Z) and ``amino_acid_prediction``
-        (X,Y,Z; argmax 0..19) as numpy arrays."""
+        (X,Y,Z; argmax 0..19) as numpy arrays, or with ``keep_on_device``
+        as tensors on the predictor's device (nothing is copied to the
+        host; candidate extraction reads them there)."""
         t0 = time.time()
         dev = self.device
         core_n, halo, win = self.core, self.halo, self.window
@@ -256,8 +265,20 @@ class SlidingWindowPredictor:
 
         t1 = time.time()
         bsz = self.batch_size
+        copy_kernels = not average and not af_float
+        if copy_kernels and len(compute_starts):
+            # a window's origin in the padded frame is its core's start
+            dev_starts = starts_tensor(compute_starts, padded_map.shape, win, dev)
         for ofs in range(0, len(compute_starts), bsz):
             batch = compute_starts[ofs:ofs + bsz]
+            if copy_kernels:
+                st = dev_starts[ofs:ofs + bsz]
+                got = gather_windows(padded_map, padded_af, st, win)
+                wins, afs = got if with_af else (got, None)
+                cores = self._forward(wins, afs, False)
+                scatter_cores((bb_v, ca_v, aa_v), tuple(c.contiguous() for c in cores),
+                              st, len(batch), core_n)
+                continue
             wins = torch.stack([padded_map[x:x + win, y:y + win, zz:zz + win]
                                 for x, y, zz in batch])
             afs = None
@@ -290,6 +311,9 @@ class SlidingWindowPredictor:
             "amino_acid_probability": torch.movedim(aa_c, -1, 0),
             "amino_acid_prediction": torch.argmax(aa_c, dim=-1),
         }
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+        if keep_on_device:
+            out = {k: v.contiguous() for k, v in out.items()}
+        else:
+            out = {k: v.cpu().numpy() for k, v in out.items()}
         self.timing["reconstruction"] = time.time() - t2
         return out

@@ -21,7 +21,7 @@ from ..device import resolve_device
 from ..io import mrc as mrc_io
 from ..io import pdb as pdb_io
 from ..ops.normalize import normalize_map
-from ..ops.rasterize import rasterize_af3_encoding
+from ..ops.rasterize import rasterize_af3_encoding, voxel_to_world
 from ..ops.resample import resample_to_voxel_size
 from .engine import SlidingWindowPredictor, auto_batch_size, best_core
 
@@ -37,6 +37,9 @@ class PreparedMap:
     origin: np.ndarray  # header origin (Angstroms, XYZ)
     voxel_size: float  # target voxel size (1.0)
     source_path: Optional[str] = None
+
+    def voxel_to_world(self, indices: np.ndarray) -> np.ndarray:
+        return voxel_to_world(indices, self.origin, self.voxel_size, self.offset)
 
 
 def prepare_map(map_path: str, target_voxel_size: float = 1.0,

@@ -14,7 +14,8 @@ Kernel routing:
   * the heads' fused conv1 over the three FPN parts: K1, bias and
     statistics off;
   * ``DualAttention``'s local conv: K3;
-  * the rest (stem, ``feat_conv``, FPN laterals and smooths, head conv2,
+  * the stem's four Cin=1 convs at inference: K8;
+  * the rest (``feat_conv``, FPN laterals and smooths, head conv2,
     the cascade corrections, the 1x1s) are library convs and matmuls, as
     they were XLA ops outside any Pallas kernel in the JAX package.
 
@@ -41,6 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import stem as stem_ops
 from ..ops.conv3d_in import conv3d, conv3d_in_relu, conv3d_in_relu_ad
 from ..ops.depthwise import depthwise_conv3_ad
 
@@ -210,31 +212,43 @@ class MultiScaleInput(nn.Module):
         self.feat_conv = Conv(24, base, 3)
         self.feat_gate = _slots(_0=Conv(base, base // 4, 1), _2=Conv(base // 4, 1, 1))
         self.fusion = Conv(3 * base, base, 1)
+        self._stem_cache = None
+
+    def _packed_stem_weight(self, dt: torch.dtype) -> torch.Tensor:
+        """The four kernels as K8's packed (C, 832) weight in ``dt``, derived
+        again only when a kernel was written to, replaced or moved (its
+        version counter, storage or device changed).  Where autograd records
+        the kernels it is derived anew, attached to them, and not kept."""
+        ws = [conv.weight for conv in self.exp_convs]
+        if torch.is_grad_enabled() and any(w.requires_grad for w in ws):
+            return stem_ops.pack_weight(stem_ops.combine_weights(ws), dt)
+        key = (dt,) + tuple((w._version, w.data_ptr(), w.device) for w in ws)
+        if self._stem_cache is None or self._stem_cache[0] != key:
+            with torch.no_grad():
+                self._stem_cache = (key, stem_ops.pack_weight(stem_ops.combine_weights(ws), dt))
+        return self._stem_cache[1]
 
     def stem(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """The four convs as one 9^3 conv (kernels zero-embedded, rounded
         to x's dtype as the JAX stem does), f32 accumulation and bias, cast
-        to x's dtype; under training the conv's output is cast first and
-        the bias added in x's dtype, as the JAX training path emits the
-        compute dtype.  At even sizes it runs as the JAX package's
-        space-to-depth conv (fold 2 per axis: Cin 8, a 5^3 kernel), which
-        a Cin=1 library conv runs far below its rate."""
+        to x's dtype: K8 when not training.  K8, like the kernel it
+        replaces, has no backward (on the card its wrapper refuses tensors
+        that autograd records), so training keeps a library conv: at even
+        sizes the JAX package's space-to-depth form (fold 2 per axis: Cin 8,
+        a 5^3 kernel), which a Cin=1 library conv runs far below its rate.
+        Under training the conv's output is cast first and the bias added in
+        x's dtype, as the JAX training path emits the compute dtype."""
         dt = x.dtype
-        ws = []
-        for conv in self.exp_convs:
-            pad = (9 - conv.weight.shape[-1]) // 2
-            ws.append(F.pad(conv.weight.to(dt).float(), (pad,) * 6))
-        w = torch.cat(ws, dim=0)                      # (Ctot, 1, 9, 9, 9)
         b = torch.cat([conv.bias for conv in self.exp_convs]).float()
+        if not train:
+            return stem_ops.stem_conv(x[..., 0], self._packed_stem_weight(dt), b)
+        w = stem_ops.combine_weights([conv.weight.to(dt).float() for conv in self.exp_convs])
         xin = x.float().permute(0, 4, 1, 2, 3)        # (B, 1, D, H, W)
         if all(n % 2 == 0 for n in xin.shape[2:]):
             y = _unfold_s2d(F.conv3d(_fold_s2d(xin), _fold_kernel_s2d(w), padding=2))
         else:
             y = F.conv3d(xin, w, padding=4)
-        y = y.permute(0, 2, 3, 4, 1)
-        if train:
-            return y.to(dt) + b.to(dt)
-        return (y + b).to(dt)
+        return y.permute(0, 2, 3, 4, 1).to(dt) + b.to(dt)
 
     def forward(self, exp_map: torch.Tensor, af: Optional[torch.Tensor], rate: float = 0.0,
                 drop: Optional[Dropout] = None, train: bool = False) -> torch.Tensor:

@@ -11,7 +11,10 @@ the output is 2^-9 relative), statistics 1e-4 relative (f32 sums in
 another order, with atomics).  K4 and K6 are bitwise equal to their bf16
 plain versions; K5's and K7's f32 sums stay within 1e-5 of the sum of
 the terms' magnitudes.  ``Conv3dInReluFn``'s output and gradients stay
-within 1e-2 relative L2 of the same function run on the CPU.
+within 1e-2 relative L2 of the same function run on the CPU.  K8 stays
+within 1e-2 of the largest reference value (f32 sums in another order, one
+bf16 rounding); K9 and K10 are exact; device candidate extraction equals
+the host path in order and ``pred`` and to 1e-12 in ``coords`` and ``aa``.
 """
 
 import pytest
@@ -187,3 +190,135 @@ def test_autograd_fns_launch_their_kernels(gen):
     assert after["conv3d_stats"] == before["conv3d_stats"] + 2  # forward and dx
     assert w.grad.dtype == k.grad.dtype == torch.float32
     assert torch.count_nonzero(b.grad) == 0 and x.grad.shape == x.shape
+
+
+@pytest.mark.parametrize("shape,c", [
+    ((2, 16, 16, 16), 128),   # even, whole tiles
+    ((1, 15, 17, 19), 128),   # odd: masked tiles on every axis
+    ((2, 5, 6, 7), 32),       # smaller than a tile, the narrow channel tile
+    ((1, 8, 8, 33), 64),
+])
+def test_stem_conv_matches_plain(gen, shape, c):
+    from mica_tpu_torch.ops import stem
+
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+    ws = [torch.randn(c // 4, 1, k, k, k, device="cuda", generator=gen) * k ** -1.5
+          for k in (3, 5, 7, 9)]
+    bias = torch.randn(c, device="cuda", generator=gen)
+    packed = stem.pack_weight(stem.combine_weights(ws), torch.bfloat16)
+    before = stem.launches["stem9"]
+    got = stem.stem_conv(x, packed, bias)
+    torch.cuda.synchronize()
+    assert stem.launches["stem9"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == shape + (c,)
+    _close(got, stem.stem_conv_plain(x.float(), packed.float(), bias))
+    with pytest.raises(TypeError):
+        stem.stem_conv(x.float(), packed.float(), bias)
+    # no backward on the card: a tensor that autograd records is refused
+    with pytest.raises(RuntimeError, match="no backward"):
+        stem.stem_conv(x, packed, bias.requires_grad_())
+    assert stem.launches["stem9"] == before + 1
+
+
+@pytest.mark.parametrize("with_af", [True, False])
+@pytest.mark.parametrize("extent,w,starts", [
+    ((80, 80, 80), 32, [[0, 0, 0], [24, 24, 24], [48, 0, 24], [13, 7, 41], [48, 48, 48]]),
+    ((41, 43, 45), 16, [[0, 0, 0], [25, 27, 29], [3, 5, 7]]),      # nothing 16-byte aligned
+    ((160, 160, 160), 64, [[0, 48, 96], [96, 0, 48]]),
+])
+def test_gather_windows_exact(gen, extent, w, starts, with_af):
+    from mica_tpu_torch.ops import window_copy as wc
+
+    pm = torch.rand(extent, device="cuda", generator=gen)
+    pa = (torch.randint(0, 2 ** 24, extent, device="cuda", generator=gen, dtype=torch.int32)
+          if with_af else None)
+    st = wc.starts_tensor(torch.tensor(starts).numpy(), extent, w, "cuda")
+    before = wc.launches["gather_windows"]
+    got = wc.gather_windows(pm, pa, st, w)
+    want = wc.gather_windows_plain(pm, pa, st, w)
+    torch.cuda.synchronize()
+    assert wc.launches["gather_windows"] == before + 1
+    if with_af:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("extent,c,a,starts,n_valid", [
+    ((80, 80, 80), 24, 4, [[0, 0, 0], [24, 24, 24], [48, 0, 24], [48, 48, 48], [48, 48, 48]], 4),
+    ((41, 43, 45), 13, 3, [[0, 0, 0], [26, 13, 31], [13, 26, 5]], 2),   # unaligned rows
+    ((96, 96, 96), 48, 20, [[0, 48, 0], [48, 0, 48]], 2),
+])
+def test_scatter_cores_exact_and_skips_tail(gen, extent, c, a, starts, n_valid):
+    from mica_tpu_torch.ops import window_copy as wc
+
+    n = len(starts)
+    vols = (torch.rand(extent, device="cuda", generator=gen),
+            torch.rand(extent, device="cuda", generator=gen),
+            torch.rand(extent + (a,), device="cuda", generator=gen))
+    cores = (torch.rand((n, c, c, c), device="cuda", generator=gen),
+             torch.rand((n, c, c, c), device="cuda", generator=gen),
+             torch.rand((n, c, c, c, a), device="cuda", generator=gen))
+    # a skipped entry is not read: poison the tail
+    for t in cores:
+        t[n_valid:] = float("nan")
+    st = wc.starts_tensor(torch.tensor(starts).numpy(), extent, c, "cuda")
+    want = wc.scatter_cores_plain(tuple(v.clone() for v in vols), cores, st, n_valid, c)
+    before = wc.launches["scatter_cores"]
+    got = wc.scatter_cores(vols, cores, st, n_valid, c)
+    torch.cuda.synchronize()
+    assert wc.launches["scatter_cores"] == before + 1
+    for g, v, w_ in zip(got, vols, want):
+        assert g.data_ptr() == v.data_ptr()  # in place
+        assert torch.equal(g, w_)
+
+
+@pytest.mark.parametrize("n_res,size,seed", [(40, 48, 7), (120, 96, 3)])
+def test_device_candidate_extraction_matches_host(gen, n_res, size, seed):
+    import numpy as np
+
+    from mica_tpu_torch.trace.candidates import extract_candidates
+    from mica_tpu_torch.trace.candidates_device import extract_candidates_device
+    from mica_tpu_torch.utils.synthetic import make_scenario
+
+    _, _, vols = make_scenario(n_res=n_res, shape=(size,) * 3, seed=seed)
+    keys = ("carbon_alpha_probability", "backbone_probability", "amino_acid_probability")
+    host = extract_candidates(*(vols[k] for k in keys), vols["amino_acid_prediction"],
+                              cluster_method="morphology")
+    stats = {}
+    got = extract_candidates_device(*(torch.from_numpy(vols[k]).cuda() for k in keys),
+                                    stats=stats)
+    assert len(got["coords"]) == len(host.coords) == stats["n_candidates"] > 0
+    np.testing.assert_array_equal(got["pred"], host.aa_pred)     # order too
+    np.testing.assert_allclose(got["coords"], host.coords, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got["aa"], host.aa_prob, rtol=0, atol=1e-12)
+
+
+def test_engine_keeps_volumes_on_the_card_through_the_copy_kernels(gen):
+    """Core blend with a packed AF encoding: one K9 and one K10 launch per
+    computed batch, one K8 launch per forward, volumes returned as CUDA
+    tensors."""
+    import numpy as np
+
+    from mica_tpu_torch.infer import engine
+    from mica_tpu_torch.models.mica import MICA
+    from mica_tpu_torch.ops import stem, window_copy as wc
+
+    rng = np.random.default_rng(21)
+    vol = np.zeros((40, 30, 20), np.float32)
+    vol[2:30, 3:22, 1:15] = rng.random((28, 19, 14))
+    af = np.zeros((24, 40, 30, 20), np.float32)
+    af[:, 4:10, 4:9, 2:8] = rng.random((24, 6, 5, 6)) < 0.05
+    model = MICA(base=64).init_weights(torch.Generator().manual_seed(0))
+    pred = engine.SlidingWindowPredictor(model, batch_size=2, base_filters=64, core=16, halo=8)
+    before = dict(stem.launches, **wc.launches)
+    kept = pred.predict_volume(vol, af, keep_on_device=True)
+    batches = pred.timing["n_forwards"] - 1
+    assert batches >= 2
+    assert stem.launches["stem9"] == before["stem9"] + batches + 1
+    assert wc.launches["gather_windows"] == before["gather_windows"] + batches
+    assert wc.launches["scatter_cores"] == before["scatter_cores"] + batches
+    for k, v in kept.items():
+        assert v.is_cuda and v.shape[-3:] == vol.shape and bool(torch.isfinite(v).all())
+    assert kept["amino_acid_probability"].shape == (20,) + vol.shape

@@ -340,10 +340,15 @@ def test_custom_backward_matches_autograd_of_the_plain_forward():
     backward (K4-K7's plain versions, the dx conv, db = 0) that
     ``train=True`` takes: every gradient agrees to 1e-4 relative L2
     (measured 6e-6; the stem's and heads' training-mode casts are
-    identities in f32)."""
+    identities in f32).  The stem has no custom backward and takes its
+    training route in both runs: its inference route sums the same conv
+    in another order, and the network's gradients carry that rounding to
+    1e-3, which is not what this test is about."""
     x, af, tgt = _grad_inputs(seed=12)
     lam = loss.task_lambdas(0)
     model = MICA(base=BASE, dtype=torch.float32).init_weights(torch.Generator().manual_seed(3))
+    stem = model.input_processing.stem
+    model.input_processing.stem = lambda x, train=False: stem(x, True)
     grads = []
     for train in (True, False):
         model.zero_grad(set_to_none=True)
