@@ -35,7 +35,14 @@ Phases, each printing what it found; any failure ends the run non-zero:
      counts of those 5 alone; 8 steps on one fixed batch whose loss must
      fall; a profile of one step; 2 x 16^3 gradients against the f32
      network on the CPU, at weights initialised from ``--seed`` (held on
-     the whole vector and on every tensor) and at the trained weights.
+     the whole vector and on every tensor) and at the trained weights;
+  7. the scripts: K11 and K12 in each of ``distill_ew_crash``'s ten
+     variants at its shapes (K11 to the bit, K12 within 1e-5 of the terms'
+     magnitudes) and K13 at the layout probe's, to the bit in both
+     layouts, each timed beside its plain version and one library call;
+     then the ``main`` of ``mica_tpu_torch.scripts.distill_ew_crash``,
+     ``bench_in_apply`` (K2) and ``probe_layout_boundary`` in this
+     process, with the launch counts of those three runs alone.
 
 The kernels' JSON record and the card's name come before the last line,
 ``{"ok": true, "device": {...}}``.  Details go to ``--out`` (default
@@ -92,9 +99,10 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float):
 
 def _counters():
     """The kernel wrappers' launch counts (module dicts, mutable)."""
-    from mica_tpu_torch.ops import conv3d_in, depthwise, stem, window_copy
+    from mica_tpu_torch.ops import conv3d_in, depthwise, ew_rows, scale, stem, window_copy
 
-    return conv3d_in.launches, depthwise.launches, stem.launches, window_copy.launches
+    return (conv3d_in.launches, depthwise.launches, stem.launches, window_copy.launches,
+            ew_rows.launches, scale.launches)
 
 
 def _reset_counts():
@@ -1050,6 +1058,139 @@ def profile_train_step(torch, trainer, state, batch, detail):
                                    top=[[n[:200], v] for n, v in top])
 
 
+def check_scripts_kernels(torch, g, detail):
+    """K11 and K12 in each variant of ``distill_ew_crash`` at its shapes, x
+    and dy (64, 64, 512, 128) bf16: K11 bitwise against its plain version,
+    K12 within 1e-5 of the sums of the terms' magnitudes (f32 sums in
+    another order, with atomics); K13 bitwise at the layout probe's (8,
+    64^3, 256) and its transpose.  Each timed beside its plain version and
+    one library call: the eager bf16 expression with in-place ops, a
+    ``torch.sum`` of g and g^2 (K12), ``torch.mul(out=)`` (K13)."""
+    from mica_tpu_torch.ops import ew_rows, scale
+    from mica_tpu_torch.scripts import distill_ew_crash as de
+    from mica_tpu_torch.scripts import probe_layout_boundary as probe
+
+    shape = (de.D, de.H, de.R, de.C)
+    inputs = {"x": torch.randn(*shape, device="cuda", generator=g).to(torch.bfloat16),
+              "dy": torch.randn(*shape, device="cuda", generator=g).to(torch.bfloat16),
+              "ms2": torch.randn(2, de.R, de.C, device="cuda", generator=g),
+              "ms3": torch.randn(3, de.R, de.C, device="cuda", generator=g)}
+    x, dy = inputs["x"], inputs["dy"]
+    numel = x.numel()
+    rows11, rows12 = [], []
+    for v in de.VARIANTS:
+        body, write, h_block = de.SPEC[v]
+        args = de.args_of(v, inputs)
+        fn = de.build(v, "cuda")
+        scratch = list(args)
+        if write is not None:
+            scratch[write] = args[write].clone()
+        if body == "k5":
+            got = de.run_variant(v, inputs, "cuda")
+            torch.cuda.synchronize()
+            want = ew_rows.masked_sq_stats_plain(x, dy)
+            mag = ew_rows.masked_sq_stats_plain(x, dy.abs())
+            err = (got - want).abs().max().item()
+            excess = ((got - want).abs() - 1e-5 * mag).max().item()
+            fail_if(not excess <= 1e-3, f"K12 {v}: err {err} beyond 1e-5 of the magnitudes")
+            bnd, by = bound_ms(3.0 * numel, 4.0 * numel + 8.0 * de.B_SZ * de.C, PEAK_F32)
+            plain = cuda_ms(lambda: ew_rows.masked_sq_stats_plain(x, dy))
+            grp = (-1, de.R // de.B_SZ, de.B_SZ, de.C)
+
+            def lib():
+                gg = torch.where(x > 0, dy, 0).float()
+                return torch.stack([gg.view(grp).sum(dim=(0, 1)),
+                                    gg.square().view(grp).sum(dim=(0, 1))], dim=1)
+
+            lib_name, rows, tol = "torch.sum of g and g^2", rows12, "1e-5 of the magnitudes"
+        else:
+            got = de.run_variant(v, inputs, "cuda")
+            got = got if isinstance(got, tuple) else (got,)
+            torch.cuda.synchronize()
+            want = ew_rows.rows_ew_plain(x, args[-1], body, dy if body == "k4" else None)
+            want = want if isinstance(want, tuple) else (want,)
+            fail_if(not all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"K11 {v}: differs from its bf16 plain version")
+            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            moved = (2 + (body in ("k2", "k4"))) * 2.0 * numel + 4.0 * args[-1].numel()
+            bnd, by = bound_ms((2 + (body == "k3")) * float(numel), moved, PEAK_F32)
+            plain = cuda_ms(lambda: ew_rows.rows_ew_plain(*((x, args[-1], body, dy) if body == "k4"
+                                                             else (x, args[-1], body))))
+            t = args[-1].to(torch.bfloat16)
+            lib = {"k1": lambda: torch.sub(x, t[0]).mul_(t[1]).relu_(),
+                   "k2": lambda: (lambda xh: (torch.relu(xh), xh))(torch.sub(x, t[0]).mul_(t[1])),
+                   "k3": lambda: torch.sub(x, t[0]).mul_(t[1]).add_(t[2]),
+                   "k4": lambda: torch.where(x > 0, dy, 0).sub_(t[0]).mul_(t[1])}[body]
+            lib_name, rows, tol = "eager bf16", rows11, "bitwise"
+        ms = cuda_ms(lambda: fn(*scratch), reps=5)
+        lib_ms = cuda_ms(lib)
+        rows.append(dict(site=v, body=body, h_block=h_block, max_abs_err=err, ms=ms,
+                         plain_ms=plain, library_ms=lib_ms, bound_ms=bnd, bound_by=by))
+        print(f"{'K12' if body == 'k5' else 'K11'} {v} ({body}{', h_block 8' if h_block else ''}"
+              f"{', in place' if write is not None else ''}): max_abs_err {err:.3e} ({tol}); "
+              f"time {ms:.4f} ms, plain {plain:.4f} ms, {lib_name} {lib_ms:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by})", flush=True)
+        del got, want, scratch
+    del inputs, x, dy
+    torch.cuda.empty_cache()
+
+    y = torch.randn(probe.B, probe.D, probe.H, probe.W, probe.CO, device="cuda",
+                    generator=g).to(torch.bfloat16)
+    err = 0.0
+    for label, t in (("(B, D, H, W, C)", y),
+                     ("(D, H, W, B, C)", y.permute(1, 2, 3, 0, 4).contiguous())):
+        got = scale.scale2(t)
+        torch.cuda.synchronize()
+        fail_if(not torch.equal(got, scale.scale2_plain(t)), f"K13 on {label}: differs from x * 2")
+        err = max(err, (got.float() - 2.0 * t.float()).abs().max().item())
+        del got, t
+    bnd, by = bound_ms(float(y.numel()), 4.0 * y.numel(), PEAK_F32)
+    ms = cuda_ms(lambda: scale.scale2(y), reps=5)
+    plain = cuda_ms(lambda: scale.scale2_plain(y))
+    buf = torch.empty_like(y)
+    lib_ms = cuda_ms(lambda: torch.mul(y, 2, out=buf))
+    site = "x".join(str(v) for v in y.shape)
+    rows13 = [dict(site=site, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
+                   bound_ms=bnd, bound_by=by, gbytes_per_s=4.0 * y.numel() / ms / 1e6)]
+    print(f"K13 {site} bf16: bitwise equal to x * 2 in both layouts; time {ms:.4f} ms "
+          f"({4.0 * y.numel() / ms / 1e6:.1f} GB/s), plain {plain:.4f} ms, torch.mul(out=) "
+          f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+    del y, buf
+    torch.cuda.empty_cache()
+    detail["rows_ew"], detail["masked_sq_stats"], detail["scale2"] = rows11, rows12, rows13
+    return rows11, rows12, rows13
+
+
+def scripts_path(torch, detail):
+    """The three ported scripts' ``main`` in this process, nothing caught;
+    returns the launch counts of those runs alone."""
+    from mica_tpu_torch.scripts import bench_in_apply, distill_ew_crash, probe_layout_boundary
+
+    _reset_counts()
+    t0 = time.time()
+    codes = {}
+    for mod in (distill_ew_crash, bench_in_apply, probe_layout_boundary):
+        name = mod.__name__.rsplit(".", 1)[1]
+        print(f"--- python -m mica_tpu_torch.scripts.{name}", flush=True)
+        codes[name] = mod.main([])
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    wall = time.time() - t0
+    print(f"scripts: exit codes {json.dumps(codes)} in {wall:.1f} s; launches "
+          f"{json.dumps(launches)}", flush=True)
+    for name, code in codes.items():
+        fail_if(code != 0, f"{name} exited {code}")
+    n_k11 = sum(1 for body, _, _ in distill_ew_crash.SPEC.values() if body != "k5")
+    fail_if(launches["rows_ew"] != n_k11,
+            f"rows_ew: {launches['rows_ew']} launches, expected {n_k11}")
+    fail_if(launches["masked_sq_stats"] != 1, "masked_sq_stats: not one launch")
+    for k in ("in_apply", "scale2"):
+        fail_if(launches[k] == 0, f"the scripts never launched {k}")
+    detail["scripts"] = dict(exit_codes=codes, launches=launches, wall_s=wall)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1114,6 +1255,13 @@ def main() -> int:
     gradient_reference(torch, args.seed, trained, detail)
     out.write_text(json.dumps(detail, indent=1))
 
+    torch.backends.cudnn.allow_tf32 = False
+    rows["rows_ew"], rows["masked_sq_stats"], rows["scale2"] = check_scripts_kernels(
+        torch, g, detail)
+    torch.backends.cudnn.allow_tf32 = True
+    script_launches = scripts_path(torch, detail)
+    out.write_text(json.dumps(detail, indent=1))
+
     def entry(name, route, source, replaces, launches, sites):
         """``sites``: launches of the path's run per site of ``rows[name]``,
         so each time is the kernel's share of one forward (prediction) or
@@ -1158,10 +1306,20 @@ def main() -> int:
               "mica_tpu/ops/window_dma.py:94", model_launches, {"af": 1}),
         entry("scatter_cores", "cuda", "mica_tpu_torch/csrc/window_copy.cu",
               "mica_tpu/ops/window_dma.py:153", model_launches, {"full": 1}),
+        # K11-K13: ms per run of the script's variants (one launch each) or
+        # per call; launches of the three scripts' runs
+        entry("rows_ew", "triton", "mica_tpu_torch/ops/ew_rows.py",
+              "scripts/distill_ew_crash.py:56-131", script_launches,
+              {r["site"]: 1 for r in rows["rows_ew"]}),
+        entry("masked_sq_stats", "triton", "mica_tpu_torch/ops/ew_rows.py",
+              "scripts/distill_ew_crash.py:162", script_launches, {"accum3": 1}),
+        entry("scale2", "cuda", "mica_tpu_torch/csrc/scale2.cu",
+              "scripts/probe_layout_boundary.py:42,57", script_launches,
+              {rows["scale2"][0]["site"]: 1}),
     ]
     detail["kernels"] = kernels
     detail["launches"] = {"predict": predict_launches, "model": model_launches,
-                          "train": train_launches}
+                          "train": train_launches, "scripts": script_launches}
     out.write_text(json.dumps(detail, indent=1))
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mica_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-SOURCES = ("conv3d_stats", "depthwise3", "depthwise3_grads", "stem9", "window_copy")
+SOURCES = ("conv3d_stats", "depthwise3", "depthwise3_grads", "stem9", "window_copy",
+           "scale2")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

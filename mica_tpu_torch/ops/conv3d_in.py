@@ -280,6 +280,30 @@ def in_bwd_apply_plain(xh: torch.Tensor, dy: torch.Tensor, m1: torch.Tensor,
     return s * (g - m1 - xh * m2)
 
 
+_round_bf16 = None
+
+
+def round_bf16_jit():
+    """The Triton helper ``round_bf16(x)``: f32 -> nearest bf16 (ties to
+    even) -> f32 in integer ops, a rounding that no compiler contracts
+    away (with plain casts K6's card result differed from the eager
+    expression by an ulp of x̂·m2 where (g - m1) and x̂·m2 cancel).  Built
+    on first use; K6 and K11 call it."""
+    global _round_bf16
+    if _round_bf16 is None:
+        import triton
+        import triton.language as tl
+
+        @triton.jit
+        def round_bf16(x):
+            bits = x.to(tl.int32, bitcast=True)
+            bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & -65536
+            return bits.to(tl.float32, bitcast=True)
+
+        _round_bf16 = round_bf16
+    return _round_bf16
+
+
 _ad_kernels = None
 
 
@@ -288,6 +312,8 @@ def _ad_triton():
     if _ad_kernels is None:
         import triton
         import triton.language as tl
+
+        round_bf16 = round_bf16_jit()
 
         @triton.jit
         def in_apply_ad_kernel(y_ptr, xh_ptr, m_ptr, s_ptr, S, C,
@@ -335,16 +361,6 @@ def _ad_triton():
             # one atomic per (program, b, c): the partial sums of CHUNK voxels
             tl.atomic_add(st_ptr + b * 2 * C + cols, acc_g, mask=cmask)
             tl.atomic_add(st_ptr + b * 2 * C + C + cols, acc_gx, mask=cmask)
-
-        @triton.jit
-        def round_bf16(x):
-            # f32 -> nearest bf16 (ties to even) -> f32 in integer ops, a
-            # rounding that no compiler contracts away: with plain casts
-            # the card result differed from the eager expression by an
-            # ulp of x̂·m2 where (g - m1) and x̂·m2 cancel
-            bits = x.to(tl.int32, bitcast=True)
-            bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & -65536
-            return bits.to(tl.float32, bitcast=True)
 
         @triton.jit
         def in_bwd_apply_kernel(xh_ptr, dy_ptr, dc_ptr, m1_ptr, m2_ptr, s_ptr, S, C,

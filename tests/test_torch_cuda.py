@@ -15,6 +15,9 @@ within 1e-2 relative L2 of the same function run on the CPU.  K8 stays
 within 1e-2 of the largest reference value (f32 sums in another order, one
 bf16 rounding); K9 and K10 are exact; device candidate extraction equals
 the host path in order and ``pred`` and to 1e-12 in ``coords`` and ``aa``.
+K11 and K13 are bitwise equal to their bf16 plain versions, in each mode
+and in place or not; K12's f32 sums stay within 1e-5 of the sum of the
+terms' magnitudes.
 """
 
 import pytest
@@ -322,3 +325,77 @@ def test_engine_keeps_volumes_on_the_card_through_the_copy_kernels(gen):
     for k, v in kept.items():
         assert v.is_cuda and v.shape[-3:] == vol.shape and bool(torch.isfinite(v).all())
     assert kept["amino_acid_probability"].shape == (20,) + vol.shape
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 13, 96), (2, 9, 16, 200)])  # odd R, C past a tile, H % 8
+@pytest.mark.parametrize("h_block", [0, 8])
+@pytest.mark.parametrize("body", ["k1", "k2", "k3", "k4"])
+def test_rows_ew_matches_plain_bitwise(gen, body, h_block, shape):
+    from mica_tpu_torch.ops import ew_rows
+
+    x = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+    dy = (torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16) if body == "k4"
+          else None)
+    table = torch.randn(ew_rows.BODIES[body], *shape[2:], device="cuda", generator=gen)
+    want = ew_rows.rows_ew_plain(x, table, body, dy)
+    want = want if isinstance(want, tuple) else (want,)
+    before = ew_rows.launches["rows_ew"]
+    got = ew_rows.rows_ew(x, table, body, dy=dy, h_block=h_block)
+    got = got if isinstance(got, tuple) else (got,)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # in place, as the aliased variants run: into x, or into dy for k4
+    target = (x if dy is None else dy).clone()
+    res = (ew_rows.rows_ew(target, table, body, out=target, h_block=h_block) if dy is None
+           else ew_rows.rows_ew(x, table, body, dy=target, out=target, h_block=h_block))
+    y = res[0] if body == "k2" else res
+    torch.cuda.synchronize()
+    assert y.data_ptr() == target.data_ptr() and torch.equal(y, want[0])
+    assert ew_rows.launches["rows_ew"] == before + 2
+
+
+@pytest.mark.parametrize("shape,b_sz", [((3, 5, 16, 96), 8), ((2, 7, 13, 200), 8),
+                                        ((64, 1, 512, 128), 8), ((2, 3, 20, 32), 4)])
+def test_masked_sq_stats_matches_plain(gen, shape, b_sz):
+    from mica_tpu_torch.ops import ew_rows
+
+    x = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+    dy = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+    before = ew_rows.launches["masked_sq_stats"]
+    got = ew_rows.masked_sq_stats(x, dy, b_sz)
+    torch.cuda.synchronize()
+    assert ew_rows.launches["masked_sq_stats"] == before + 1
+    want = ew_rows.masked_sq_stats_plain(x, dy, b_sz)
+    mag = ew_rows.masked_sq_stats_plain(x, dy.abs(), b_sz)
+    assert got.shape == (b_sz, 2, shape[-1])
+    assert ((got - want).abs() <= 1e-5 * mag + 1e-4).all()
+
+
+@pytest.mark.parametrize("n,offset", [(4096, 0), (1001, 0), (1001, 1), (7, 3), ((1 << 20) + 5, 0)])
+def test_scale2_matches_plain_bitwise(gen, n, offset):
+    """16-byte words with a tail, and a view that starts off the 16-byte
+    grid (the element path)."""
+    from mica_tpu_torch.ops import scale
+
+    base = torch.randn(n + offset, device="cuda", generator=gen).to(torch.bfloat16)
+    base[offset] = 3e38   # doubles to infinity, as the eager product does
+    x = base[offset:]
+    before = scale.launches["scale2"]
+    got = scale.scale2(x)
+    torch.cuda.synchronize()
+    assert scale.launches["scale2"] == before + 1
+    assert got.dtype == torch.bfloat16 and torch.equal(got, scale.scale2_plain(x))
+
+
+def test_scale2_refuses_what_it_would_have_to_copy(gen):
+    from mica_tpu_torch.ops import scale
+
+    x = torch.randn(2, 4, 4, 4, 8, device="cuda", generator=gen).to(torch.bfloat16)
+    before = scale.launches["scale2"]
+    with pytest.raises(TypeError, match="contiguous"):
+        scale.scale2(x.permute(1, 2, 3, 0, 4))
+    with pytest.raises(TypeError):
+        scale.scale2(x.float())
+    assert scale.launches["scale2"] == before
+    assert torch.equal(scale.scale2(x.permute(1, 2, 3, 0, 4).contiguous()),
+                       scale.scale2_plain(x).permute(1, 2, 3, 0, 4))
