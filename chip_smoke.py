@@ -7,14 +7,17 @@ Phases, each printing what it found; any failure ends the run non-zero:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build the CUDA kernels from ``mica_tpu_torch/csrc`` (one ``nvcc`` per
-     source, all at once);
+     source, all at once), then K1's ``-Xptxas -v`` report (registers,
+     barriers, spills per kernel);
   3. hold every kernel against its plain PyTorch version at the shapes of
      its path (batch 8, 64^3 windows, the widths of MICA at base 64; for
      K1 also every dx geometry of a training step; K8 also at an odd
      size; K9/K10 with and without the AF words, at unaligned starts and
      with a skipped tail), in f32 from the same bf16 inputs (K9/K10: to
      the bit), and time kernel, plain version and one library call (a
-     yardstick the port never calls);
+     yardstick the port never calls); K1 also prints each site's share of
+     the bf16 peak and its ratio to cuDNN, and the sums over a forward and
+     over a training step's dx convs;
   4. the prediction path: ``predict_map`` on a synthetic map written to an
      MRC, with a docked model for the AF3 encoding, random weights from
      ``--seed``, bf16, batch 8, core 48 / halo 8; the launch counts of
@@ -115,22 +118,37 @@ def _read_counts() -> dict:
     return {k: v for counts in _counters() for k, v in counts.items()}
 
 
-def k1_sites_of(base: int = BASE):
-    """(parts' channels, Co, stats) of every K1 launch in one forward."""
-    sites = []
-    c = base
-    for _ in range(3):
-        h = c // 2
-        sites += [([c], h, True), ([c, h], h, True), ([c, h, h], c, True), ([c], 2 * c, True)]
-        c *= 2
-    sites.append(([base] * 3, 192, False))
-    return sites
+def ptxas_report(log: str) -> list:
+    """One line per kernel of an ``-Xptxas -v`` log: template arguments
+    (BN, MT for K1), registers, barriers, spills."""
+    import re
+
+    lines, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(1))
+            name = "<" + ", ".join(args) + ">" if args else m.group(1)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and name:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name, spill = None, ""
+    return lines
+
+
+def k1_plan_line(conv3d_in, cis, co) -> str:
+    """K1's tile plan at the main path's shape, with its shared memory."""
+    p = conv3d_in.k1_plan(cis, co, (BATCH, WIN, WIN, WIN))
+    return (f"plan BK {p.bk}, BN {p.bn} x {p.n_tiles}, MT {p.mt} (brick "
+            f"{'x'.join(map(str, p.brick))}), {p.stages} stages, {p.smem} B shared, "
+            f"{p.tiles} tiles on {p.ctas} CTAs")
 
 
 def check_k1(torch, F, conv3d_in, g, detail):
     """K1 at every site, stats on and off, against the plain version in f32."""
     rows = []
-    for cis, co, main_stats in k1_sites_of():
+    for cis, co, main_stats in conv3d_in.k1_sites(BASE):
         parts = [torch.randn(BATCH, WIN, WIN, WIN, c, device="cuda", generator=g)
                  .to(torch.bfloat16) for c in cis]
         ci = sum(cis)
@@ -172,33 +190,28 @@ def check_k1(torch, F, conv3d_in, g, detail):
             wl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
             lib = cuda_ms(lambda: F.conv3d(xcat, wl, bias.to(torch.bfloat16)
                                            if bias is not None else None, padding=1))
+            share = flops / (ms * 1e-3) / PEAK_BF16
             rows.append(dict(site=f"{cis}->{co}", max_abs_err=err, ms=ms, plain_ms=plain,
                              library_ms=lib, bound_ms=bnd, bound_by=by,
-                             tflops=flops / ms / 1e9))
-            print(f"  time {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, "
-                  f"library conv3d {lib:.3f} ms, bound {bnd:.3f} ms ({by})", flush=True)
+                             tflops=flops / ms / 1e9, peak_share=share, vs_library=ms / lib))
+            print(f"  time {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {100 * share:.1f} % of "
+                  f"the bf16 peak), plain {plain:.3f} ms, library conv3d {lib:.3f} ms (K1 "
+                  f"{ms / lib:.3f}x), bound {bnd:.3f} ms ({by}); {k1_plan_line(conv3d_in, cis, co)}",
+                  flush=True)
         del parts, ref, ref_st
         torch.cuda.empty_cache()
+    k1, lib = sum(r["ms"] for r in rows), sum(r["library_ms"] for r in rows)
+    print(f"K1 forward, {len(rows)} sites: {k1:.3f} ms, library conv3d {lib:.3f} ms (K1 "
+          f"{k1 / lib:.3f}x), bound {sum(r['bound_ms'] for r in rows):.3f} ms", flush=True)
     detail["conv3d_stats"] = rows
     return rows
-
-
-def k1_dx_sites_of(base: int = BASE):
-    """{(Ci, Co): launches per training step} of K1's dx convs: one part
-    of a forward site's Co in, that site's summed Ci out, statistics and
-    bias off (``Conv3dInReluFn.backward``)."""
-    sites = {}
-    for cis, co, stats in k1_sites_of(base):
-        if stats:
-            sites[(co, sum(cis))] = sites.get((co, sum(cis)), 0) + 1
-    return sites
 
 
 def check_k1_dx(torch, F, conv3d_in, g, detail):
     """K1 at every dx geometry of a training step, with the flipped and
     transposed weight the backward passes, against the plain version in f32."""
     rows = []
-    for (ci, co), per_step in k1_dx_sites_of().items():
+    for (ci, co), per_step in conv3d_in.k1_dx_sites(BASE).items():
         dc = torch.randn(BATCH, WIN, WIN, WIN, ci, device="cuda", generator=g).to(torch.bfloat16)
         w_fwd = torch.randn(ci, co, 3, 3, 3, device="cuda", generator=g) * math.sqrt(
             2.0 / (27 * (ci + co)))
@@ -215,13 +228,20 @@ def check_k1_dx(torch, F, conv3d_in, g, detail):
         ms = cuda_ms(lambda: conv3d_in.conv3d([dc], w, None, with_stats=False))
         wl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
         lib = cuda_ms(lambda: F.conv3d(dc.permute(0, 4, 1, 2, 3), wl, padding=1))
+        share = flops / (ms * 1e-3) / PEAK_BF16
         rows.append(dict(site=f"{ci}->{co}", launches_per_step=per_step, max_abs_err=err,
-                         ms=ms, library_ms=lib, bound_ms=bnd, bound_by=by))
+                         ms=ms, library_ms=lib, bound_ms=bnd, bound_by=by,
+                         tflops=flops / ms / 1e9, peak_share=share, vs_library=ms / lib))
         print(f"K1 dx {ci}->{co} (x{per_step} per step): max_abs_err {err:.3e} (tol {tol:.3e}); "
-              f"time {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), library conv3d {lib:.3f} ms, "
-              f"bound {bnd:.3f} ms ({by})", flush=True)
+              f"time {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {100 * share:.1f} % of the "
+              f"bf16 peak), library conv3d {lib:.3f} ms (K1 {ms / lib:.3f}x), bound {bnd:.3f} ms "
+              f"({by}); {k1_plan_line(conv3d_in, [ci], co)}", flush=True)
         del dc, want, out
         torch.cuda.empty_cache()
+    k1 = sum(r["ms"] * r["launches_per_step"] for r in rows)
+    lib = sum(r["library_ms"] * r["launches_per_step"] for r in rows)
+    print(f"K1 dx per training step ({sum(r['launches_per_step'] for r in rows)} launches): "
+          f"{k1:.3f} ms, library conv3d {lib:.3f} ms (K1 {k1 / lib:.3f}x)", flush=True)
     detail["conv3d_stats_dx"] = rows
     return rows
 
@@ -1216,6 +1236,8 @@ def main() -> int:
     per_source = _build.build()
     print(f"build: {time.time() - t0:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in per_source.items())})",
           flush=True)
+    for line in ptxas_report(_build.logs.get("conv3d_stats", "")):
+        print(f"  conv3d_stats ptxas: {line}", flush=True)
 
     detail = {"device": smi, "build_s": per_source}
     out = Path(args.out)
@@ -1276,9 +1298,9 @@ def main() -> int:
                     ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
                     bound_by=bound_by, library_ms=tot("library_ms"))
 
-    k1_sites = {f"{cis}->{co}": 1 for cis, co, _ in k1_sites_of()}
+    k1_sites = {f"{cis}->{co}": 1 for cis, co, _ in conv3d_in.k1_sites(BASE)}
     k2_sites = {}
-    for cis, co, st in k1_sites_of():
+    for cis, co, st in conv3d_in.k1_sites(BASE):
         if st:
             k2_sites[f"C={co}"] = k2_sites.get(f"C={co}", 0) + 1
     pl = predict_launches

@@ -7,7 +7,8 @@ use, never at import, with
 
 into ``build/mica_tpu_torch/<name>-<hash>.so`` at the repository root (the
 hash covers the sources and flags, so an edited source never loads a stale
-library).  The library is loaded with ``ctypes``; callers pass pointers
+library).  ``conv3d_stats`` adds ``-Xptxas -v``: its registers, shared
+memory and spills per kernel are kept in ``logs``.  The library is loaded with ``ctypes``; callers pass pointers
 from ``Tensor.data_ptr()`` and the current stream as Python ints.
 """
 
@@ -26,10 +27,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mica_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+EXTRA_FLAGS = {"conv3d_stats": ["-Xptxas", "-v"]}
 SOURCES = ("conv3d_stats", "depthwise3", "depthwise3_grads", "stem9", "window_copy",
            "scale2")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+logs: Dict[str, str] = {}   # compiler output of each source built by this process
 
 
 def _nvcc() -> str:
@@ -44,7 +47,7 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, [])).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
@@ -63,7 +66,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, []), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -72,6 +76,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.time() - t0
+        logs[name] = log
         if proc.returncode != 0:
             failed.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n{log}")
             continue

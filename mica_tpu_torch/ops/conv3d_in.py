@@ -6,7 +6,8 @@ its plain PyTorch version:
   * K1 ``conv3d`` (CUDA C++, ``csrc/conv3d_stats.cu``): 3x3x3 SAME conv +
     bias over the channel concat of 1-3 operands, with the per-(batch,
     channel) sums of y and y^2 of the f32 value before the cast.  Replaces
-    ``_wino_T``; bounded by the tensor cores (see the source's note).
+    ``_wino_T``; bounded by the tensor cores (see the source's note).  Its
+    tile plan (``k1_plan``) is computed here and handed to the kernel.
   * K2 ``in_apply`` (Triton): y = relu((y - mean) * scale) in place, with
     mean and scale cast to the tensor's dtype first.  Replaces
     ``_in_apply_T``.  One read and one write per element and a tiny
@@ -36,6 +37,7 @@ or raises.  ``launches`` counts kernel launches per wrapper.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass, replace
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -84,11 +86,173 @@ def conv3d_plain(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] = Non
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_CONV_ARGS = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_CONV_ARGS = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_I] * 8 + [_P]
+
+# (BN, MT) pairs compiled into ``csrc/conv3d_stats.cu`` (``K1_CONFIGS``
+# there): N tile and m64 slices per consumer warpgroup.  MT 2 (a 256-voxel
+# brick) up to BN 128 and MT 1 above: the fastest of MT 1, 2 and 4 on the
+# H100.
+K1_CONFIGS = ((256, 1), (192, 1), (128, 2), (96, 2), (64, 2), (32, 2))
+K1_MT = dict(K1_CONFIGS)
+SMEM_MAX = 232448           # shared memory a block can use on the H100 (227 KB)
+MAX_STAGES = 8
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, (v - 1).bit_length())
+
+
+@dataclass(frozen=True)
+class K1Plan:
+    """K1's tile plan, handed to the kernel as it is.
+
+    ``bk`` channels a K step (one tap, one part), swizzled ``2 * bk``
+    bytes; ``bn`` output channels an N tile, ``n_tiles`` of them; ``mt``
+    m64 slices per consumer warpgroup, so a brick of ``bm = 128 * mt``
+    voxels ``brick = (bw, bh, bd)``; ``bricks`` per axis (x, y, z) of one
+    sample; ``stages`` of the TMA ring; ``ctas`` persistent blocks, in
+    clusters of two that share each weight tile (each loads half and
+    multicasts it): a cluster's tile is two adjacent bricks."""
+
+    cis: Tuple[int, ...]
+    co: int
+    shape: Tuple[int, int, int, int]
+    bk: int
+    bn: int
+    n_tiles: int
+    mt: int
+    brick: Tuple[int, int, int]
+    bricks: Tuple[int, int, int]
+    stages: int
+    ctas: int
+
+    @property
+    def bm(self) -> int:
+        return 128 * self.mt
+
+    @property
+    def n_bricks(self) -> int:
+        nbx, nby, nbz = self.bricks
+        return self.shape[0] * nbx * nby * nbz
+
+    @property
+    def tiles(self) -> int:
+        """Tiles of the CTAs, two per cluster tile (the last partner of an
+        odd brick count idle)."""
+        return 2 * (-(-self.n_bricks // 2)) * self.n_tiles
+
+    @property
+    def ksteps(self) -> int:
+        return 27 * sum(self.cis) // self.bk
+
+    @property
+    def stage_bytes(self) -> int:
+        return -(-(self.bm * self.bk * 2 + self.bn * self.bk * 2) // 1024) * 1024
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory: 1024 B of alignment slack, the ring, its
+        full/empty barriers and the (2, Co) f32 statistics."""
+        return 1024 + self.stages * (self.stage_bytes + 16) + 8 * self.co
+
+    def tile(self, t: int) -> Optional[Tuple[int, int, int, int, int]]:
+        """(b, x0, y0, z0, n0) of tile ``t`` = 2 * cluster tile + CTA rank,
+        or None for an idle partner: brick pairs in order, the N tiles of a
+        pair adjacent (the kernel's ``decode``)."""
+        nbx, nby, nbz = self.bricks
+        bw, bh, bd = self.brick
+        pair, rank = divmod(t, 2)
+        pb, nt = divmod(pair, self.n_tiles)
+        brick = 2 * pb + rank
+        if brick >= self.n_bricks:
+            return None
+        brick, bx = divmod(brick, nbx)
+        brick, by = divmod(brick, nby)
+        b, bz = divmod(brick, nbz)
+        return b, bx * bw, by * bh, bz * bd, nt * self.bn
+
+    def ksteps_of(self):
+        """(dz, dy, dx, part, channel, weight column) of each K step, in
+        the producer's order: taps, then parts, then BK channel blocks."""
+        kw = 0
+        for tap in range(27):
+            dz, dy, dx = tap // 9 - 1, (tap // 3) % 3 - 1, tap % 3 - 1
+            for part, c in enumerate(self.cis):
+                for c0 in range(0, c, self.bk):
+                    yield dz, dy, dx, part, c0, kw
+                    kw += self.bk
+
+
+def k1_plan(cis: Sequence[int], co: int, shape: Sequence[int], sm_count: int = 132) -> K1Plan:
+    """The tile plan of K1 for parts of channels ``cis``, ``co`` outputs
+    and volume ``shape`` (B, D, H, W).  Raises ``ValueError`` for widths the
+    kernel does not take (every Ci and Co a multiple of 32)."""
+    cis = tuple(int(c) for c in cis)
+    b, d, h, w = (int(v) for v in shape)
+    if not 1 <= len(cis) <= 3 or any(c <= 0 or c % 32 for c in cis) or co <= 0 or co % 32:
+        raise ValueError(f"K1 takes 1-3 parts with Ci % 32 == 0 and Co % 32 == 0, got "
+                         f"{list(cis)} -> {co}")
+    bk = 64 if all(c % 64 == 0 for c in cis) else 32
+    n_tiles = next(n for n in range(1, co // 32 + 1)
+                   if co % n == 0 and co // n in K1_MT)
+    bn = co // n_tiles
+    mt = K1_MT[bn]
+    bm = 128 * mt
+    bw = min(_pow2_at_least(w), bm, 256)
+    bh = min(_pow2_at_least(h), bm // bw, 256)
+    bd = bm // (bw * bh)
+    while bd > 256:
+        if bw < 256:
+            bw *= 2
+        else:
+            bh *= 2
+        bd //= 2
+    bricks = (-(-w // bw), -(-h // bh), -(-d // bd))
+    plan = K1Plan(cis, co, (b, d, h, w), bk, bn, n_tiles, mt, (bw, bh, bd), bricks, 2, 1)
+    stages = min(MAX_STAGES, (SMEM_MAX - 1024 - 8 * co) // (plan.stage_bytes + 16))
+    if stages < 2:
+        raise ValueError(f"K1: no two stages of {plan.stage_bytes} bytes fit beside Co {co}")
+    return replace(plan, stages=stages, ctas=min(sm_count // 2 * 2, plan.tiles))
+
+
+def k1_sites(base: int = 64):
+    """(parts' channels, Co, stats) of every K1 launch in one MICA forward
+    at width ``base``: per stage the RDB convs and the transition, then the
+    heads' conv1 (no statistics)."""
+    sites = []
+    c = base
+    for _ in range(3):
+        h = c // 2
+        sites += [([c], h, True), ([c, h], h, True), ([c, h, h], c, True), ([c], 2 * c, True)]
+        c *= 2
+    sites.append(([base] * 3, 192, False))
+    return sites
+
+
+def k1_dx_sites(base: int = 64):
+    """{(Ci, Co): launches per training step} of K1's dx convs: one part
+    of a forward site's Co in, that site's summed Ci out, statistics and
+    bias off (``Conv3dInReluFn.backward``)."""
+    sites = {}
+    for cis, co, stats in k1_sites(base):
+        if stats:
+            sites[(co, sum(cis))] = sites.get((co, sum(cis)), 0) + 1
+    return sites
+
+
+_sm_counts: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
 
 
 def pack_weight(weight: torch.Tensor) -> torch.Tensor:
-    """(Co, Ci, 3, 3, 3) -> (Co, 27 * Ci) bf16, [co][tap][ci]: K1's B operand."""
+    """(Co, Ci, 3, 3, 3) -> (Co, 27 * Ci) bf16, [co][tap][ci]: K1's B operand,
+    K-major as wgmma reads it."""
     co = weight.shape[0]
     return weight.permute(0, 2, 3, 4, 1).reshape(co, -1).to(_BF16).contiguous()
 
@@ -98,7 +262,8 @@ def conv3d(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
     """K1.  ``parts``: 1-3 tensors (B, D, H, W, Ci_k) standing for their
     channel concat; ``weight`` (Co, sum Ci_k, 3, 3, 3); ``bias`` (Co,) or
     None.  Returns (out (B, D, H, W, Co) in the parts' dtype, stats
-    (B, 2, Co) f32 or None)."""
+    (B, 2, Co) f32 or None).  On the card every part must be contiguous
+    bf16 at a 16-byte-aligned address (TMA reads it in place)."""
     parts = _as_parts(parts)
     if parts[0].device.type == "cpu":
         return conv3d_plain(parts, weight, bias, with_stats)
@@ -112,11 +277,16 @@ def conv3d(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
         if p.dim() != 5 or tuple(p.shape[:4]) != (b, d, h, w) or p.shape[4] % 32:
             raise ValueError(f"operand shape {tuple(p.shape)}: needs (B,D,H,W,Ci) "
                              "with a shared (B,D,H,W) and Ci % 32 == 0")
+        if p.data_ptr() % 16:
+            raise ValueError("conv3d on the card reads each operand by TMA, which needs "
+                             "a 16-byte-aligned address; this operand is not (it is not "
+                             "copied)")
     cis = [p.shape[4] for p in parts]
     co = weight.shape[0]
     if tuple(weight.shape[1:]) != (sum(cis), 3, 3, 3) or co % 32:
         raise ValueError(f"weight shape {tuple(weight.shape)} for Ci {sum(cis)}; "
                          "Co must be a multiple of 32")
+    plan = k1_plan(cis, co, (b, d, h, w), _sm_count(parts[0].device))
     wp = pack_weight(weight.to(parts[0].device))
     bp = None
     if bias is not None:
@@ -129,8 +299,9 @@ def conv3d(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
     err = _build.function("conv3d_stats", "conv3d_stats_bf16", _CONV_ARGS)(
         ptrs[0], ptrs[1], ptrs[2], cis[0], cis[1], cis[2],
         wp.data_ptr(), None if bp is None else bp.data_ptr(), out.data_ptr(),
-        None if stats is None else stats.data_ptr(),
-        b, d, h, w, co, torch.cuda.current_stream(out.device).cuda_stream)
+        None if stats is None else stats.data_ptr(), b, d, h, w, co,
+        plan.bk, plan.bn, plan.mt, *plan.brick, plan.stages, plan.ctas,
+        torch.cuda.current_stream(out.device).cuda_stream)
     _build.check(err, "conv3d_stats")
     launches["conv3d_stats"] += 1
     return out, stats

@@ -40,9 +40,13 @@ def _close(got, want, rel=1e-2):
 
 @pytest.mark.parametrize("shape,cis,co,stats", [
     ((2, 8, 8, 8), [64], 32, True),
-    ((2, 8, 8, 8), [64, 32, 32], 64, True),
-    ((1, 8, 8, 8), [64, 64, 64], 192, False),
-    ((3, 5, 7, 9), [32], 128, True),   # blocks span samples: per-row atomics
+    ((2, 8, 8, 8), [64, 32, 32], 64, True),       # BK 32 over a 64-channel part
+    ((2, 8, 8, 8), [128, 64], 64, True),          # BK 64, two parts
+    ((1, 8, 8, 8), [64, 64, 64], 192, False),     # the heads: one N tile of 192
+    ((1, 6, 8, 8), [64], 512, True),              # two N tiles of 256
+    ((3, 5, 7, 9), [32], 128, True),              # odd: bricks cut every edge, W < brick
+    ((2, 9, 10, 5), [32], 96, False),             # a dx geometry, 32 -> 96
+    ((2, 16, 16, 16), [64], 32, True),            # many tiles per CTA
 ])
 def test_conv3d_stats_matches_plain(gen, shape, cis, co, stats):
     from mica_tpu_torch.ops import conv3d_in
@@ -62,6 +66,46 @@ def test_conv3d_stats_matches_plain(gen, shape, cis, co, stats):
     _close(out, ref)
     if stats:
         _close(st, ref_st, rel=1e-4)
+
+
+def test_conv3d_stats_sums_per_sample_when_ctas_span_samples(gen):
+    """Three samples of 128 bricks each: a cluster's tiles lie 132 bricks
+    apart, so every CTA's statistics are flushed for more than one sample,
+    and every sample's sums still match."""
+    from mica_tpu_torch.ops import conv3d_in
+
+    shape, cis, co = (3, 32, 32, 32), [64, 32], 64
+    plan = conv3d_in.k1_plan(cis, co, shape)
+    assert plan.n_bricks // shape[0] < plan.ctas < plan.tiles
+    parts = [torch.randn(*shape, c, device="cuda", generator=gen).to(torch.bfloat16)
+             for c in cis]
+    w = torch.randn(co, sum(cis), 3, 3, 3, device="cuda", generator=gen) * 0.05
+    b = torch.randn(co, device="cuda", generator=gen)
+    out, st = conv3d_in.conv3d(parts, w, b)
+    ref, ref_st = conv3d_in.conv3d_plain([p.float() for p in parts],
+                                         w.to(torch.bfloat16).float(), b)
+    torch.cuda.synchronize()
+    _close(out, ref)
+    _close(st, ref_st, rel=1e-4)
+
+
+def test_conv3d_stats_refuses_misaligned_operands(gen):
+    """TMA needs 16-byte-aligned addresses: a view at a 2-byte offset is
+    refused, not copied."""
+    from mica_tpu_torch.ops import conv3d_in
+
+    n = 2 * 4 * 4 * 4 * 32
+    flat = torch.randn(n + 1, device="cuda", generator=gen).to(torch.bfloat16)
+    x = flat[1:].view(2, 4, 4, 4, 32)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    w = torch.randn(32, 32, 3, 3, 3, device="cuda", generator=gen)
+    before = conv3d_in.launches["conv3d_stats"]
+    with pytest.raises(ValueError, match="16-byte"):
+        conv3d_in.conv3d([x], w, None)
+    assert conv3d_in.launches["conv3d_stats"] == before
+    out, _ = conv3d_in.conv3d([x.clone()], w, None, with_stats=False)
+    _close(out, conv3d_in.conv3d_plain([x.float()], w.to(torch.bfloat16).float(), None,
+                                       False)[0])
 
 
 @pytest.mark.parametrize("c", [32, 192, 512])
