@@ -7,8 +7,8 @@ Phases, each printing what it found; any failure ends the run non-zero:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build the CUDA kernels from ``mica_tpu_torch/csrc`` (one ``nvcc`` per
-     source, all at once), then K1's ``-Xptxas -v`` report (registers,
-     barriers, spills per kernel);
+     source, all at once), then K1's and K3's ``-Xptxas -v`` report
+     (registers, barriers, spills per kernel);
   3. hold every kernel against its plain PyTorch version at the shapes of
      its path (batch 8, 64^3 windows, the widths of MICA at base 64; for
      K1 also every dx geometry of a training step; K8 also at an odd
@@ -17,11 +17,13 @@ Phases, each printing what it found; any failure ends the run non-zero:
      the bit), and time kernel, plain version and one library call (a
      yardstick the port never calls); K1 also prints each site's share of
      the bf16 peak and its ratio to cuDNN, and the sums over a forward and
-     over a training step's dx convs;
+     over a training step's dx convs; K3 runs in the forward and in the dx
+     form, on odd shapes too, with its share of the bound and its tile plan;
   4. the prediction path: ``predict_map`` on a synthetic map written to an
      MRC, with a docked model for the AF3 encoding, random weights from
-     ``--seed``, bf16, batch 8, core 48 / halo 8; the launch counts of
-     that run alone; a profile of one batch forward; then a small window
+     ``--seed``, bf16, batch 8, core 48 / halo 8, twice: the process's
+     first call (one-off costs) and the measured one, with the launch
+     counts of that run alone; a profile of one batch forward; then a small window
      batch against the f32 network on the CPU;
   5. the modelling path: a synthetic scenario (map, FASTA, AF3 template,
      docked model) written to disk and the ``Solver`` behind
@@ -39,10 +41,19 @@ Phases, each printing what it found; any failure ends the run non-zero:
      fall; a profile of one step; 2 x 16^3 gradients against the f32
      network on the CPU, at weights initialised from ``--seed`` (held on
      the whole vector and on every tensor) and at the trained weights;
-  7. the scripts: K11 and K12 in each of ``distill_ew_crash``'s ten
+  7. f32 on the card (``f32_path``): the route the JAX package's f32
+     takes, library convs with TF32 off and no K1-K8 launch, against the
+     f32 CPU at 1e-4: ``predict_map``, ``python -m
+     mica_tpu_torch.cli.predict --float32`` as a subprocess, ``cli.run
+     --float32``'s solver through its network stage, the f32 gradient
+     (cosine >= 0.9999), two ``Trainer`` steps and ``cli.train --dtype
+     float32`` for one epoch, at base 64 on a 16^3 map (about half a
+     minute);
+  8. the scripts: K11 and K12 in each of ``distill_ew_crash``'s ten
      variants at its shapes (K11 to the bit, K12 within 1e-5 of the terms'
      magnitudes) and K13 at the layout probe's, to the bit in both
-     layouts, each timed beside its plain version and one library call;
+     layouts, at an unaligned start and with a tail, each timed beside its
+     plain version and one library call (K13 in turns with it);
      then the ``main`` of ``mica_tpu_torch.scripts.distill_ew_crash``,
      ``bench_in_apply`` (K2) and ``probe_layout_boundary`` in this
      process, with the launch counts of those three runs alone.
@@ -118,6 +129,16 @@ def _read_counts() -> dict:
     return {k: v for counts in _counters() for k, v in counts.items()}
 
 
+def _kernel_name(mangled: str) -> str:
+    """``foo_kernel`` out of a mangled name: the identifier ending in
+    ``_kernel`` that its length prefix announces."""
+    head = mangled[:mangled.find("_kernel") + 7]
+    for n in range(8, len(head)):
+        if head[:-n].endswith(str(n)):
+            return head[-n:]
+    return mangled
+
+
 def ptxas_report(log: str) -> list:
     """One line per kernel of an ``-Xptxas -v`` log: template arguments
     (BN, MT for K1), registers, barriers, spills."""
@@ -128,7 +149,7 @@ def ptxas_report(log: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             args = re.findall(r"Li(\d+)E", m.group(1))
-            name = "<" + ", ".join(args) + ">" if args else m.group(1)
+            name = "<" + ", ".join(args) + ">" if args else _kernel_name(m.group(1))
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and name:
@@ -277,10 +298,69 @@ def check_k2(torch, conv3d_in, g, detail):
     return rows
 
 
+def k3_plan_line(depthwise, shape, c) -> str:
+    """K3's tile plan for x of ``shape`` (B, D, H, W) and C channels."""
+    p = depthwise.k3_plan(shape, c)
+    return (f"plan TY {p.ty}, TX {p.tx}, CG {p.cg}, z segments of {p.seg} ({p.grid[3]} a "
+            f"sample), {p.threads} threads, {p.blocks} blocks, {p.smem} B shared")
+
+
+# K3's shapes off the main path: batch 1 (the all-zero window; z cut into
+# segments), H and W not multiples of the tile with C 16, C 24 and a
+# single row, D = 1, and a short batch of 16^3 windows
+K3_ODD = ((1, 64, 64, 64, 64), (3, 5, 7, 9, 16), (1, 3, 1, 130, 24), (2, 1, 13, 21, 64),
+          (3, 16, 16, 16, 128))
+
+
 def check_k3(torch, F, depthwise, g, detail):
-    rows = []
+    """K3 at the three DualAttention widths of the main path, in the
+    forward and in the dx form of the training backward (zyx-flipped taps,
+    zero bias), then on odd shapes, against the plain version in f32 from
+    the same bf16 inputs.  Tolerance 1e-2 of the largest reference value:
+    27 f32 products summed in another order, one bf16 rounding."""
+    rows, dx_rows = [], []
     for c in (64, 128, 256):
         x = torch.randn(BATCH, WIN, WIN, WIN, c, device="cuda", generator=g).to(torch.bfloat16)
+        w = torch.randn(c, 1, 3, 3, 3, device="cuda", generator=g) * 0.2
+        b = torch.randn(c, device="cuda", generator=g) * 0.1
+        xf = x.float()
+        xl = x.permute(0, 4, 1, 2, 3)
+        for form, wt, bt, out in (("forward", w, b, rows),
+                                  ("dx", w.flip(2, 3, 4), torch.zeros_like(b), dx_rows)):
+            want = depthwise.depthwise_conv3_plain(xf, wt, bt)
+            got = depthwise.depthwise_conv3(x, wt, bt)
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs().max().item()
+            tol = 1e-2 * want.abs().max().item()
+            fail_if(not err <= tol, f"K3 {form} C={c}: err {err} > {tol}")
+            del want, got
+            nbytes = 2.0 * 2 * x.numel() + 4.0 * 28 * c
+            bnd, by = bound_ms(2.0 * 27 * x.numel(), nbytes, PEAK_F32)
+            ms = cuda_ms(lambda: depthwise.depthwise_conv3(x, wt, bt), reps=20)
+            plain = cuda_ms(lambda: depthwise.depthwise_conv3_plain(xf, wt, bt), reps=1)
+            wl = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+            bl = bt.to(torch.bfloat16)
+            lib = cuda_ms(lambda: F.conv3d(xl, wl, bl, padding=1, groups=c))
+            out.append(dict(site=f"C={c}", max_abs_err=err, ms=ms, plain_ms=plain,
+                            library_ms=lib, bound_ms=bnd, bound_by=by, bound_share=bnd / ms))
+            print(f"K3 {form} C={c}: max_abs_err {err:.3e} (tol {tol:.3e}); time {ms:.4f} ms "
+                  f"({100 * bnd / ms:.1f} % of its bound), plain {plain:.3f} ms, library "
+                  f"grouped conv3d {lib:.3f} ms, bound {bnd:.4f} ms ({by}); "
+                  f"{k3_plan_line(depthwise, x.shape[:4], c)}", flush=True)
+        del x, xf, xl
+        torch.cuda.empty_cache()
+    fwd = sum(r["ms"] for r in rows)
+    dx = sum(r["ms"] for r in dx_rows)
+    bnd = sum(r["bound_ms"] for r in rows)
+    print(f"K3 forward, 3 sites: {fwd:.4f} ms against a bound of {bnd:.4f} ms "
+          f"({100 * bnd / fwd:.1f} %); a training step's 9 launches (forward, "
+          f"recomputation, dx): {2 * fwd + dx:.4f} ms against {3 * bnd:.4f} ms; each site "
+          f"at >= 50 % of its bound: {all(r['bound_share'] >= 0.5 for r in rows + dx_rows)}",
+          flush=True)
+    odd = []
+    for shape in K3_ODD:
+        c = shape[-1]
+        x = torch.randn(*shape, device="cuda", generator=g).to(torch.bfloat16)
         w = torch.randn(c, 1, 3, 3, 3, device="cuda", generator=g) * 0.2
         b = torch.randn(c, device="cuda", generator=g) * 0.1
         want = depthwise.depthwise_conv3_plain(x.float(), w, b)
@@ -288,23 +368,12 @@ def check_k3(torch, F, depthwise, g, detail):
         torch.cuda.synchronize()
         err = (got.float() - want).abs().max().item()
         tol = 1e-2 * want.abs().max().item()
-        fail_if(not err <= tol, f"K3 C={c}: err {err} > {tol}")
-        nbytes = 2.0 * 2 * x.numel() + 4.0 * 28 * c
-        bnd, by = bound_ms(2.0 * 27 * x.numel(), nbytes, PEAK_F32)
-        ms = cuda_ms(lambda: depthwise.depthwise_conv3(x, w, b), reps=5)
-        xf = x.float()
-        plain = cuda_ms(lambda: depthwise.depthwise_conv3_plain(xf, w, b), reps=1)
-        xl = x.permute(0, 4, 1, 2, 3)
-        wl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
-        bl = b.to(torch.bfloat16)
-        lib = cuda_ms(lambda: F.conv3d(xl, wl, bl, padding=1, groups=c))
-        rows.append(dict(site=f"C={c}", max_abs_err=err, ms=ms, plain_ms=plain,
-                         library_ms=lib, bound_ms=bnd, bound_by=by))
-        print(f"K3 C={c}: max_abs_err {err:.3e} (tol {tol:.3e}); time {ms:.3f} ms, plain "
-              f"{plain:.3f} ms, library grouped conv3d {lib:.3f} ms, bound {bnd:.3f} ms "
-              f"({by})", flush=True)
-        del x, xf, want, got
-    detail["depthwise3"] = rows
+        site = "x".join(str(v) for v in shape)
+        fail_if(not err <= tol, f"K3 {site}: err {err} > {tol}")
+        odd.append(dict(site=site, max_abs_err=err))
+        print(f"K3 {site}: max_abs_err {err:.3e} (tol {tol:.3e}); "
+              f"{k3_plan_line(depthwise, shape[:4], c)}", flush=True)
+    detail["depthwise3"], detail["depthwise3_dx"], detail["depthwise3_odd"] = rows, dx_rows, odd
     return rows
 
 
@@ -641,13 +710,20 @@ def main_path(torch, args, detail):
     from mica_tpu_torch.infer.pipeline import predict_map
     from mica_tpu_torch.models.mica import MICA
     model = MICA(base=BASE).init_weights(torch.Generator().manual_seed(args.seed))
+    kw = dict(batch_size=BATCH, dtype=torch.bfloat16, base_filters=BASE, core=48, halo=8)
     with tempfile.TemporaryDirectory() as tmp:
         map_path, pdb_path = synthetic_inputs(Path(tmp), args.map_size, args.seed)
+        # the process's first call pays one-off costs (library heuristics,
+        # Triton specialisations at the short batch's shapes) that vary from
+        # run to run; the second call is the one measured and counted
+        t0 = time.time()
+        cold = predict_map(str(map_path), model, docked_pdb_path=str(pdb_path), **kw)
+        cold_wall = time.time() - t0
+        cold_wps = (cold["timing"]["n_windows"] - cold["timing"]["n_empty"]) / cold["timing"]["inference"]
+        del cold
         _reset_counts()
         t0 = time.time()
-        out = predict_map(str(map_path), model, docked_pdb_path=str(pdb_path),
-                          batch_size=BATCH, dtype=torch.bfloat16, base_filters=BASE,
-                          core=48, halo=8)
+        out = predict_map(str(map_path), model, docked_pdb_path=str(pdb_path), **kw)
         wall = time.time() - t0
         launches = _read_counts()
     timing = out["timing"]
@@ -666,14 +742,16 @@ def main_path(torch, args, detail):
     wps = computed / timing["inference"]
     print(f"main path: map {n}^3, {timing['n_windows']} windows, {timing['n_empty']} empty, "
           f"{computed} computed in {fw} forwards (one is the all-zero window); "
-          f"{wps:.3f} windows/s over the inference phase; predict_map wall {wall:.3f} s",
+          f"{wps:.3f} windows/s over the inference phase; predict_map wall {wall:.3f} s "
+          f"(the process's first call: {cold_wps:.3f} windows/s, wall {cold_wall:.3f} s)",
           flush=True)
     print(f"timing {json.dumps(timing)}", flush=True)
     print(f"launches {json.dumps(launches)} (K1/K2/K3/K8 13/12/3/1 per forward, K9/K10 1 per "
           "computed batch)", flush=True)
     print(f"volumes finite, bb/ca in [0, 1], aa sums to 1 within {aa_sum_err:.2e}", flush=True)
     detail["main_path"] = dict(timing=timing, launches=launches, windows_per_s=wps,
-                               wall_s=wall, map_size=n)
+                               wall_s=wall, map_size=n, first_call_windows_per_s=cold_wps,
+                               first_call_wall_s=cold_wall)
     return launches, model
 
 
@@ -969,6 +1047,9 @@ def training_path(torch, args, detail):
 # to its f32 one (``test_bf16_gradient_no_farther_from_f32_than_jax``).
 GRAD_FRESH_MIN = (0.85, 0.7)
 GRAD_TRAINED_MIN = 0.9
+# f32 on the card against f32 on the CPU: the same formulas, summed in
+# another order; the whole gradient's cosine
+F32_GRAD_MIN = 0.9999
 
 
 def _grad_inputs(torch, seed):
@@ -1078,6 +1159,167 @@ def profile_train_step(torch, trainer, state, batch, detail):
                                    top=[[n[:200], v] for n, v in top])
 
 
+F32_MAP, F32_CORE = 16, 16    # the f32 phase's map (voxels an axis) and window core
+F32_KERNELS = ("conv3d_stats", "in_apply", "in_apply_ad", "in_bwd_stats", "in_bwd_apply",
+               "depthwise3", "depthwise3_grads", "stem9")
+
+
+def f32_path(torch, args, detail):
+    """f32 on the card, the route the JAX package's f32 takes: library
+    convs with TF32 off, no K1-K8 launch.  At base 64 on a small map (one
+    32^3 window) so that the CPU reference is quick: ``predict_map`` on the
+    card against the same weights on the CPU (atol 1e-4), TF32 read inside
+    the forward; ``python -m mica_tpu_torch.cli.predict --float32`` as a
+    subprocess (exit 0, its volumes against the CPU's); ``cli.run
+    --float32``'s solver through its network stage, volumes kept on the
+    card (against the CPU's); the f32 gradient of the card against the
+    CPU's at the seed's weights; two ``Trainer`` steps; and ``cli.train
+    --dtype float32`` for one epoch in this process."""
+    from mica_tpu_torch.cli import run as cli_run
+    from mica_tpu_torch.cli import train as cli_train
+    from mica_tpu_torch.infer.pipeline import predict_map
+    from mica_tpu_torch.io.mrc import read_mrc
+    from mica_tpu_torch.models.mica import MICA
+    from mica_tpu_torch.train import data as data_mod
+    from mica_tpu_torch.train.loss import task_lambdas
+    from mica_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = True          # PyTorch's default, on around the phase
+    keys = ("backbone_probability", "carbon_alpha_probability", "amino_acid_probability")
+    kw = dict(batch_size=BATCH, dtype=torch.float32, base_filters=BASE, core=F32_CORE, halo=8)
+    model = MICA(base=BASE, dtype=torch.float32).init_weights(
+        torch.Generator().manual_seed(args.seed + 5))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    tf32_seen = []
+    model.input_processing.register_forward_hook(
+        lambda *_: tf32_seen.append(torch.backends.cudnn.allow_tf32))
+    res = {}
+
+    def worst(got, want):
+        return max(float(np.abs(np.asarray(got[k], np.float64) - want[k]).max()) for k in keys)
+
+    def no_kernels(counts, what):
+        launched = {k: counts[k] for k in F32_KERNELS if counts[k]}
+        fail_if(bool(launched), f"f32 {what} launched kernels {launched}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        map_path, pdb_path = synthetic_inputs(root, F32_MAP, args.seed + 5)
+        t0 = time.time()
+        ref = predict_map(str(map_path), state, docked_pdb_path=str(pdb_path), device="cpu", **kw)
+        cpu_s = time.time() - t0
+        _reset_counts()
+        t0 = time.time()
+        card = predict_map(str(map_path), model, docked_pdb_path=str(pdb_path), **kw)
+        card_s = time.time() - t0
+        counts = _read_counts()
+        no_kernels(counts, "predict_map")
+        fail_if(not tf32_seen or any(tf32_seen), f"cuDNN TF32 inside the f32 forward: {tf32_seen}")
+        fail_if(not torch.backends.cudnn.allow_tf32, "the f32 forward did not restore TF32")
+        res["predict_map"] = worst(card, ref)
+        print(f"f32 predict_map on the card ({F32_MAP}^3 map, core {F32_CORE}, base {BASE}): "
+              f"max |dP| {res['predict_map']:.3e} against the CPU (tol 1e-4), {card_s:.1f} s "
+              f"(CPU {cpu_s:.1f} s); cuDNN TF32 inside the forward: {sorted(set(tf32_seen))}, "
+              f"after it: {torch.backends.cudnn.allow_tf32}; K1-K8 launches "
+              f"{ {k: counts[k] for k in F32_KERNELS} }", flush=True)
+
+        # the CLI, as a user runs it: on the card by default
+        torch.save({"model_state_dict": state}, root / "weights.pth")
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mica_tpu_torch.cli.predict", "-m", str(map_path), "-o",
+             str(root / "cli"), "--docked_model", str(pdb_path), "--model_checkpoint",
+             str(root / "weights.pth"), "--float32", "--window_core", str(F32_CORE),
+             "--batch_size", str(BATCH)],
+            capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+        cli_s = time.time() - t0
+        fail_if(proc.returncode != 0,
+                f"cli.predict --float32 exited {proc.returncode}: {proc.stderr[-2000:]}")
+        vols = {k: read_mrc(root / "cli" / f"{k}.mrc").to_xyz()[0] for k in keys[:2]}
+        aa16 = np.load(root / "cli" / "amino_acid_probability.npz")["data"]
+        res["cli_predict"] = max(float(np.abs(vols[k].astype(np.float64) - ref[k]).max())
+                                 for k in keys[:2])
+        res["cli_predict_aa_f16"] = float(np.abs(aa16.astype(np.float64)
+                                                 - ref["amino_acid_probability"]).max())
+        print(f"python -m mica_tpu_torch.cli.predict --float32 (subprocess, device cuda by "
+              f"default): exit 0 in {cli_s:.1f} s; bb/ca max |dP| {res['cli_predict']:.3e} "
+              f"against the CPU (tol 1e-4), aa stored in float16 {res['cli_predict_aa_f16']:.3e} "
+              f"(tol 1e-3)", flush=True)
+
+        # cli.run --float32: the solver the CLI builds, through its network stage
+        inp = root / "input"
+        inp.mkdir()
+        (inp / "input_af3_docked.pdb").write_text(pdb_path.read_text())
+        (root / "seq.fasta").write_text(">synth|Chains A\nACDEFGHIKLMNPQRSTVWY\n")
+        sol = cli_run.build_solver(cli_run.build_parser().parse_args([
+            "-m", str(map_path), "-f", str(root / "seq.fasta"), "-i", str(inp), "-o",
+            str(root / "out"), "--model_path", str(root / "weights.pth"), "--float32",
+            "--protocol", "AF3_struct_free", "--window_core", str(F32_CORE),
+            "--batch_size", str(BATCH), "--base_filters", str(BASE)]))
+        fail_if((sol.config.dtype, sol.config.device) != (torch.float32, "cuda"),
+                f"cli.run --float32 built {sol.config}")
+        fail_if(sol.check_seq() != "success", "cli.run --float32: check_seq failed")
+        _reset_counts()
+        sol.predict()
+        counts = _read_counts()
+        no_kernels(counts, "cli.run")
+        fail_if(not all(sol.volumes[k].is_cuda for k in keys), "cli.run volumes left the card")
+        res["cli_run"] = worst({k: sol.volumes[k].cpu().numpy() for k in keys}, ref)
+        print(f"cli.run --float32 (solver on the card, network stage): max |dP| "
+              f"{res['cli_run']:.3e} against the CPU (tol 1e-4), K1-K8 launches 0", flush=True)
+        del sol
+
+        # training: the card's f32 gradient against the CPU's, then steps
+        inputs = _grad_inputs(torch, args.seed)
+        fresh = MICA(base=BASE, dtype=torch.float32).init_weights(
+            torch.Generator().manual_seed(args.seed)).state_dict()
+        grads = []
+        _reset_counts()
+        for dev in ("cuda", "cpu"):
+            m = MICA(base=BASE, dtype=torch.float32)
+            m.load_state_dict(fresh)
+            grads.append(_model_grad(torch, m.to(dev), dev, inputs))
+        whole, worst_t, name = _grad_agreement(torch, *grads, "f32 card vs f32 CPU", detail)
+        fail_if(not whole >= F32_GRAD_MIN, f"f32 gradient cosine {whole} < {F32_GRAD_MIN}")
+        trainer = Trainer(base_filters=BASE, dtype=torch.float32, seed=args.seed)
+        tstate = trainer.init_state()
+        tf32_seen.clear()
+        trainer.model.input_processing.register_forward_hook(
+            lambda *_: tf32_seen.append(torch.backends.cudnn.allow_tf32))
+        batch = [torch.as_tensor(b).cuda() for b in data_mod.synthetic_batch(2, 2 * F32_CORE,
+                                                                                 args.seed)]
+        losses = [float(trainer.train_step(tstate, batch, task_lambdas(0), 0.01)["total_loss"])
+                  for _ in range(2)]
+        fail_if(not all(math.isfinite(v) for v in losses), f"f32 Trainer losses {losses}")
+        fail_if(not tf32_seen or any(tf32_seen), f"cuDNN TF32 inside an f32 step: {tf32_seen}")
+        data_mod.ArrayDataset(*data_mod.synthetic_batch(4, 2 * F32_CORE, args.seed + 1)).save(
+            str(root / "grids.npz"))
+        code = cli_train.main(["--data_path", str(root / "grids.npz"), "--output_path",
+                               str(root / "trained"), "--batch_size", "2", "--num_epochs", "1",
+                               "--val_fraction", "0.5", "--dtype", "float32",
+                               "--base_filters", str(BASE), "--log_dir", str(root / "logs"),
+                               "--seed", str(args.seed)])
+        counts = _read_counts()
+        fail_if(code != 0, f"cli.train --dtype float32 exited {code}")
+        ckpt = sorted((root / "trained").glob("mica_epoch_0*.pt"))
+        fail_if(len(ckpt) != 1, f"cli.train wrote {ckpt}")
+        val = float(torch.load(ckpt[0], map_location="cpu", weights_only=False)["val_loss"])
+        fail_if(not math.isfinite(val), f"cli.train validation loss {val}")
+        no_kernels(counts, "training")
+        print(f"f32 training on the card: gradient cosine {whole:.6f} against the CPU (min "
+              f"{F32_GRAD_MIN}; worst tensor {worst_t:.6f}, {name}); Trainer base {BASE}, "
+              f"batch 2 x {2 * F32_CORE}^3, 2 steps: losses {losses}, cuDNN TF32 inside the "
+              f"steps {sorted(set(tf32_seen))}; cli.train --dtype float32: exit 0, validation "
+              f"loss {val:.5f}; K1-K8 launches 0", flush=True)
+        del trainer, tstate, batch
+    for k in ("predict_map", "cli_predict", "cli_run"):
+        fail_if(not res[k] <= 1e-4, f"f32 {k} differs from the CPU by {res[k]}")
+    fail_if(not res["cli_predict_aa_f16"] <= 1e-3, "cli.predict's float16 aa probabilities off")
+    torch.cuda.empty_cache()
+    detail["f32"] = dict(max_abs_dp=res, cpu_s=cpu_s, card_s=card_s, cli_predict_s=cli_s,
+                         gradient_cosine=whole, trainer_losses=losses, cli_train_val_loss=val)
+
+
 def check_scripts_kernels(torch, g, detail):
     """K11 and K12 in each variant of ``distill_ew_crash`` at its shapes, x
     and dy (64, 64, 512, 128) bf16: K11 bitwise against its plain version,
@@ -1157,22 +1399,34 @@ def check_scripts_kernels(torch, g, detail):
     y = torch.randn(probe.B, probe.D, probe.H, probe.W, probe.CO, device="cuda",
                     generator=g).to(torch.bfloat16)
     err = 0.0
+    # both layouts; then a view that starts 2 bytes past an aligned address
+    # (the kernel's element path) and one with a tail of 3 elements
+    flat = y.view(-1)
     for label, t in (("(B, D, H, W, C)", y),
-                     ("(D, H, W, B, C)", y.permute(1, 2, 3, 0, 4).contiguous())):
+                     ("(D, H, W, B, C)", y.permute(1, 2, 3, 0, 4).contiguous()),
+                     ("an unaligned start", flat[1:1 + (1 << 24)]),
+                     ("a tail of 3", flat[:(1 << 24) + 3])):
         got = scale.scale2(t)
         torch.cuda.synchronize()
         fail_if(not torch.equal(got, scale.scale2_plain(t)), f"K13 on {label}: differs from x * 2")
         err = max(err, (got.float() - 2.0 * t.float()).abs().max().item())
         del got, t
+    del flat
     bnd, by = bound_ms(float(y.numel()), 4.0 * y.numel(), PEAK_F32)
-    ms = cuda_ms(lambda: scale.scale2(y), reps=5)
     plain = cuda_ms(lambda: scale.scale2_plain(y))
     buf = torch.empty_like(y)
-    lib_ms = cuda_ms(lambda: torch.mul(y, 2, out=buf))
+    # in turns with the library call; each the median of 5 runs of 20 (a
+    # run's first launch waits for the host, which the wrapper's Python
+    # keeps longer than torch.mul's: 20 launches make that wait small)
+    turns = [(cuda_ms(lambda: scale.scale2(y), reps=20),
+              cuda_ms(lambda: torch.mul(y, 2, out=buf), reps=20)) for _ in range(5)]
+    ms, lib_ms = (sorted(t[i] for t in turns)[2] for i in range(2))
     site = "x".join(str(v) for v in y.shape)
     rows13 = [dict(site=site, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
                    bound_ms=bnd, bound_by=by, gbytes_per_s=4.0 * y.numel() / ms / 1e6)]
-    print(f"K13 {site} bf16: bitwise equal to x * 2 in both layouts; time {ms:.4f} ms "
+    print(f"K13 {site} bf16: bitwise equal to x * 2 in both layouts, at an unaligned start "
+          f"and with a tail; time {ms:.4f} ms ({100 * bnd / ms:.1f} % of its bound, "
+          f"{ms / lib_ms:.4f}x torch.mul) "
           f"({4.0 * y.numel() / ms / 1e6:.1f} GB/s), plain {plain:.4f} ms, torch.mul(out=) "
           f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
     del y, buf
@@ -1236,8 +1490,9 @@ def main() -> int:
     per_source = _build.build()
     print(f"build: {time.time() - t0:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in per_source.items())})",
           flush=True)
-    for line in ptxas_report(_build.logs.get("conv3d_stats", "")):
-        print(f"  conv3d_stats ptxas: {line}", flush=True)
+    for name in ("conv3d_stats", "depthwise3"):
+        for line in ptxas_report(_build.logs.get(name, "")):
+            print(f"  {name} ptxas: {line}", flush=True)
 
     detail = {"device": smi, "build_s": per_source}
     out = Path(args.out)
@@ -1275,6 +1530,9 @@ def main() -> int:
     del trainer, state, batch
     torch.cuda.empty_cache()
     gradient_reference(torch, args.seed, trained, detail)
+    out.write_text(json.dumps(detail, indent=1))
+
+    f32_path(torch, args, detail)
     out.write_text(json.dumps(detail, indent=1))
 
     torch.backends.cudnn.allow_tf32 = False

@@ -12,9 +12,7 @@ import logging
 from pathlib import Path
 
 
-def main(argv=None) -> int:
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s - %(levelname)s - %(message)s")
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="MICA sliding-window prediction (PyTorch)")
     p.add_argument("-m", "--map_path", required=True, nargs="+",
                    help="one or more density maps; with several, the predictor "
@@ -31,10 +29,18 @@ def main(argv=None) -> int:
     p.add_argument("--window_core", type=int, default=48,
                    help="sliding-window core (MICA: 48); 0 = auto")
     p.add_argument("--float32", action="store_true",
-                   help="run the network in float32 instead of bfloat16")
+                   help="run the network in float32 instead of bfloat16 (library "
+                        "convs, TF32 off, on the card or the CPU)")
     p.add_argument("--npz_dir", default="",
                    help="per-grid .npz artifacts (not available in this port yet)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    return p
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s - %(levelname)s - %(message)s")
+    p = build_parser()
     args = p.parse_args(argv)
 
     import numpy as np

@@ -32,7 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="MICA network checkpoint (original-format .pth)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     p.add_argument("--float32", action="store_true",
-                   help="run the network in float32 instead of bfloat16 (CPU only)")
+                   help="run the network in float32 instead of bfloat16 (library "
+                        "convs, TF32 off, on the card or the CPU)")
     # reference drop-in compatibility: accepted, inert here (no fork pools;
     # the pipeline is deterministic — reference run.py:78-84)
     p.add_argument("--no_parallel", action="store_true", help=argparse.SUPPRESS)

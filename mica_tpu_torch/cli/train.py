@@ -34,7 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--val_fraction", type=float, default=0.2)
     p.add_argument("--base_filters", type=int, default=64)
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"],
-                   help="compute dtype; float32 runs on the CPU only")
+                   help="compute dtype; float32 takes the library convs with TF32 "
+                        "off, on the card or the CPU")
     p.add_argument("--log_dir", default="logs/training_logs")
     p.add_argument("--wandb", action="store_true", help="mirror metrics to wandb")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")

@@ -2,104 +2,351 @@
 // f32 accumulation, bf16 output.
 //
 // Replaces: mica_tpu/ops/depthwise_pallas.py `depthwise_conv3_pallas`
-// (kernel `_kernel`), the DualAttention local conv.
+// (kernel `_kernel`), the DualAttention local conv; the training backward
+// runs it again on the gradient with the flipped taps and no bias (dx).
 //
 // Bound on the card: bytes.  27 multiply-adds per element against one
 // 2-byte read and one 2-byte write is ~13 flop/byte, far below the H100's
-// ridge, so device memory is the limit.  Design: each thread owns two
-// consecutive channels (one bf16x2 word; a warp reads 128 contiguous
-// bytes of one voxel) of one (b, y, x) column, keeps its 2 x 27 taps and
-// bias in registers, and slides along z: each input plane's 3 x 3
-// neighbourhood is read once and feeds the three output planes it
-// touches, so every input element is fetched 9 times from L1/L2, not 27
-// (the first version's one-voxel threads read 27 and ran at ~5 % of the
-// bound).  Accumulation is in f32.  Shared-memory tiling of the (y, x)
-// halo is left for a later PR.
+// ridge, so device memory is the limit; the f32 FMAs come next (at C 256
+// they alone take about two thirds of the byte time), so the design also
+// keeps the instructions around them few.
+//
+// Design, for Hopper (sm_90a):
+//   * A block owns a TY x TX tile of (y, x) columns x a channel group CG
+//     of one sample and walks a segment of z.  Each input plane's
+//     (TY+2) x (TX+2) x CG halo box is loaded once by TMA, from a 5-D
+//     tiled tensor map over (C, W, H, D, B), into a ring of 4 plane slots
+//     in shared memory, three planes ahead of the compute; the
+//     out-of-bounds zero fill, negative coordinates included, is the SAME
+//     padding.  So each input element comes from device memory about once
+//     (the halo columns of a box are the neighbouring tiles' interior,
+//     which the blocks running beside it read at the same time, from L2).
+//   * The plan (TY, TX, CG, z segment) is computed in Python
+//     (`mica_tpu_torch/ops/depthwise.py`, `k3_plan`) and checked here.  At
+//     C 64-256 it is 4 x 8 columns x 64 channels, 128 threads, four blocks
+//     an SM; z is cut into segments (which read a 2-plane halo) while the
+//     grid is short of two waves: at batch 1, or a short last batch.
+//   * A thread owns two channels (a warp reads 32 consecutive bf16 pairs of
+//     one voxel: no bank conflicts) of XT = 8 consecutive x positions, keeps
+//     its 2 x 27 taps and bias in registers, and slides along z: each plane
+//     read from shared memory (3 rows x 10 columns, converted to f32 once)
+//     feeds the three output planes it touches, 27 FMAs an output.  Eight x
+//     positions, not four, cut the loads and conversions per FMA by a
+//     fifth, and were clearly faster in development runs on the H100 (a
+//     probe not kept); sixteen took 217 registers for little more.
+//   * Outputs go through one of two shared-memory tiles to a TMA store of
+//     the (TY, TX, CG) box: 16-byte, coalesced, clipped at the volume's
+//     edge by the hardware, and asynchronous (the tile is reused two
+//     planes later, once the store has read it).
+//   * One __syncthreads a plane: after it, one thread refills the slot just
+//     consumed and issues the store.  A barrier wait of over 4 s traps (a
+//     launch error) instead of hanging.
+// x and out must be 16-byte aligned (TMA); the wrapper refuses other x.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int XT = 8;               // x positions a thread computes
+constexpr int MAX_THREADS = 128;
+constexpr int MAX_STAGES = 8;
+constexpr int SMEM_MAX = 232448;    // 227 KB a block can use
 
-__global__ void __launch_bounds__(THREADS)
-    depthwise3_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ taps,
-                      const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int D,
-                      int H, int W, int C, long long n_threads) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_threads) return;
-  const int pairs = C / 2;
-  const int c0 = (int)(t % pairs) * 2;
-  long long r = t / pairs;
-  const int xx = (int)(r % W);
-  r /= W;
-  const int y = (int)(r % H);
-  const long long b = r / H;
+struct Params {
+  int D, C;
+  int cg, ty, tx, seg, stages;
+  int lanes, strips_x;              // cg / 2, tx / XT
+  int tiles_x, tiles_y, groups, n_seg;
+  int slot_bytes, out_bytes, box_bytes;
+  const float* taps;                // (27, C) f32, (dz, dy, dx) order
+  const float* bias;                // (C,) f32
+};
 
-  // this thread's two channels: 27 taps each and the bias, in registers
-  float w0[27], w1[27];
-#pragma unroll
-  for (int k = 0; k < 27; ++k) {
-    w0[k] = taps[k * C + c0];
-    w1[k] = taps[k * C + c0 + 1];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+__device__ __forceinline__ uint64_t globaltimer_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Waits for the phase of `parity` to complete; traps after 4 s.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = globaltimer_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (globaltimer_ns() - t0 > 4000000000ull) __trap();
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5, %6}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// every bulk store this thread issued has finished reading shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// this thread's shared-memory writes, visible to the TMA store after a barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(MAX_THREADS, 4)
+    depthwise3_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap omap, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 127u) & ~127u;           // slot s at base + s * slot_bytes
+  unsigned char* const sbase = smem_raw + (base - raw);
+  const uint32_t obase = base + p.stages * p.slot_bytes;  // two output tiles
+  const uint32_t bars = obase + 2 * p.out_bytes;          // full[s]
+
+  // block -> (x tile, y tile, channel group, z segment, sample)
+  int r = blockIdx.x;
+  const int x0 = (r % p.tiles_x) * p.tx;
+  r /= p.tiles_x;
+  const int y0 = (r % p.tiles_y) * p.ty;
+  r /= p.tiles_y;
+  const int c0 = (r % p.groups) * p.cg;
+  r /= p.groups;
+  const int z0 = (r % p.n_seg) * p.seg;
+  const int b = r / p.n_seg;
+  const int z1 = min(z0 + p.seg, p.D);                    // output planes [z0, z1)
+  const int zlo = max(z0 - 1, 0), zhi = min(z1, p.D - 1);  // input planes read
+  const int n_planes = zhi - zlo + 1;
+
+  const int tid = threadIdx.x;
+  const int lane = tid % p.lanes, strip = tid / p.lanes;
+  const int sy = strip / p.strips_x, sx = (strip % p.strips_x) * XT;
+  const int c = c0 + 2 * lane;
+
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int j = 0; j < p.stages && j < n_planes; ++j) {
+      mbar_expect_tx(bars + 8 * j, p.box_bytes);
+      tma_load_5d(base + j * p.slot_bytes, &xmap, bars + 8 * j, c0, x0 - 1, y0 - 1, zlo + j, b);
+    }
   }
-  const float b0 = bias[c0], b1 = bias[c0 + 1];
+  float2 w[27];
+#pragma unroll
+  for (int k = 0; k < 27; ++k) w[k] = *reinterpret_cast<const float2*>(p.taps + k * p.C + c);
+  const float2 bias = *reinterpret_cast<const float2*>(p.bias + c);
+  __syncthreads();
 
-  const long long HW = (long long)H * W;
-  const __nv_bfloat162* xb = reinterpret_cast<const __nv_bfloat162*>(x + b * D * HW * C + c0);
-  __nv_bfloat162* ob = reinterpret_cast<__nv_bfloat162*>(out + b * D * HW * C + c0);
-  const int cs = C / 2;  // voxel stride in bf162 units
+  // a0/a1/a2: output planes zi-1 / zi / zi+1 of this thread's XT columns
+  float2 a0[XT], a1[XT], a2[XT];
+#pragma unroll
+  for (int i = 0; i < XT; ++i) a0[i] = a1[i] = a2[i] = bias;
+  const int cb = p.cg * 2;                   // bytes of a voxel's channel group
+  const int row = (p.tx + 2) * cb;           // bytes of a box row
+  const int in_off = (sy * (p.tx + 2) + sx) * cb + lane * 4;
+  const int out_off = (sy * p.tx + sx) * cb + lane * 4;
+  int n_out = 0;
 
-  // sliding window along z: plane zi feeds out[zi-1] (dz=+1 taps),
-  // out[zi] (dz=0) and out[zi+1] (dz=-1); a*_0/1/2 hold those three
-  float a00 = b0, a01 = b1, a10 = b0, a11 = b1, a20 = b0, a21 = b1;
-  for (int zi = -1; zi <= D; ++zi) {
-    if (zi >= 0 && zi < D) {
+  for (int zi = z0 - 1; zi <= z1; ++zi) {
+    const int j = zi - zlo, s = j % p.stages;
+    const bool in_vol = zi >= 0 && zi < p.D;
+    if (in_vol) {
+      mbar_wait(bars + 8 * s, (j / p.stages) & 1);
+      const unsigned char* src = sbase + s * p.slot_bytes + in_off;
 #pragma unroll
       for (int dy = 0; dy < 3; ++dy) {
-        const int yy = y + dy - 1;
-        if (yy < 0 || yy >= H) continue;
+        float2 v[XT + 2];
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const int xn = xx + dx - 1;
-          if (xn < 0 || xn >= W) continue;
-          const float2 v = __bfloat1622float2(
-              __ldg(xb + (((long long)zi * H + yy) * W + xn) * cs));
-          const int k = dy * 3 + dx;
-          a00 = fmaf(v.x, w0[18 + k], a00);
-          a01 = fmaf(v.y, w1[18 + k], a01);
-          a10 = fmaf(v.x, w0[9 + k], a10);
-          a11 = fmaf(v.y, w1[9 + k], a11);
-          a20 = fmaf(v.x, w0[k], a20);
-          a21 = fmaf(v.y, w1[k], a21);
+        for (int jx = 0; jx < XT + 2; ++jx)
+          v[jx] = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(src + dy * row + jx * cb));
+#pragma unroll
+        for (int i = 0; i < XT; ++i) {
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const int k = dy * 3 + dx;
+            const float2 u = v[i + dx];
+            a0[i].x = fmaf(u.x, w[18 + k].x, a0[i].x);   // dz = +1: plane zi - 1
+            a0[i].y = fmaf(u.y, w[18 + k].y, a0[i].y);
+            a1[i].x = fmaf(u.x, w[9 + k].x, a1[i].x);    // dz = 0
+            a1[i].y = fmaf(u.y, w[9 + k].y, a1[i].y);
+            a2[i].x = fmaf(u.x, w[k].x, a2[i].x);        // dz = -1: plane zi + 1
+            a2[i].y = fmaf(u.y, w[k].y, a2[i].y);
+          }
         }
       }
     }
-    if (zi >= 1) ob[(((long long)(zi - 1) * H + y) * W + xx) * cs] = __floats2bfloat162_rn(a00, a01);
-    a00 = a10;
-    a01 = a11;
-    a10 = a20;
-    a11 = a21;
-    a20 = b0;
-    a21 = b1;
+    const int zo = zi - 1;                   // complete after plane zi
+    const bool store = zo >= z0;
+    if (store) {
+      unsigned char* dst = sbase + p.stages * p.slot_bytes + (n_out & 1) * p.out_bytes + out_off;
+#pragma unroll
+      for (int i = 0; i < XT; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(dst + i * cb) = __floats2bfloat162_rn(a0[i].x, a0[i].y);
+      fence_proxy_async();
+    }
+#pragma unroll
+    for (int i = 0; i < XT; ++i) {
+      a0[i] = a1[i];
+      a1[i] = a2[i];
+      a2[i] = bias;
+    }
+    // the store issued a plane ago has read its tile, which the next plane
+    // writes: wait for it before the barrier that lets the threads on
+    if (tid == 0) bulk_wait_read();
+    __syncthreads();
+    if (tid == 0) {
+      if (store) tma_store_5d(&omap, obase + (n_out & 1) * p.out_bytes, c0, x0, y0, zo, b);
+      if (in_vol && j + p.stages < n_planes) {
+        mbar_expect_tx(bars + 8 * s, p.box_bytes);
+        tma_load_5d(base + s * p.slot_bytes, &xmap, bars + 8 * s, c0, x0 - 1, y0 - 1,
+                    zlo + j + p.stages, b);
+      }
+    }
+    if (store) ++n_out;
   }
+  if (tid == 0) bulk_wait();
 }
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+int align128(int v) { return (v + 127) / 128 * 128; }
 
 }  // namespace
 
-// x, out (B,D,H,W,C) bf16 channels-last; taps (27, C) f32 in (dz,dy,dx)
-// order; bias (C,) f32; C % 8 == 0.  Returns a CUDA error code, 0 on
-// success.
+// x, out (B,D,H,W,C) bf16 channels-last, 16-byte aligned; taps (27, C) f32
+// in (dz,dy,dx) order; bias (C,) f32; C % 8 == 0.  The tile plan (`k3_plan`
+// in depthwise.py): channel group cg (C % cg == 0, cg % 8 == 0), ty x tx
+// columns (tx % 4 == 0), seg output planes a block, stages ring slots.
+// Returns 0 on success, a CUDA error code, -1 if cuTensorMapEncodeTiled
+// cannot be had, or -2 if a tensor map is refused.
 extern "C" int depthwise3_bf16(const void* x, const void* taps, const void* bias, void* out, int B,
-                               int D, int H, int W, int C, void* stream) {
-  if (C <= 0 || C % 8) return (int)cudaErrorInvalidValue;
-  const long long n_threads = (long long)B * H * W * (C / 2);
-  const long long blocks = (n_threads + THREADS - 1) / THREADS;
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  depthwise3_kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(taps),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), D, H, W, C, n_threads);
+                               int D, int H, int W, int C, int cg, int ty, int tx, int seg,
+                               int stages, void* stream) {
+  if (B <= 0 || D <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 || cg <= 0 || cg % 8 || C % cg ||
+      ty <= 0 || tx <= 0 || tx % XT || ty + 2 > 256 || tx + 2 > 256 || cg > 256 || seg <= 0 ||
+      stages < 2 || stages > MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
+  const int threads = cg / 2 * ty * (tx / XT);
+  if (threads > MAX_THREADS) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(x) & 15) || (reinterpret_cast<uintptr_t>(out) & 15) ||
+      (reinterpret_cast<uintptr_t>(taps) & 7) || (reinterpret_cast<uintptr_t>(bias) & 7))
+    return (int)cudaErrorMisalignedAddress;
+
+  Params p;
+  p.D = D;
+  p.C = C;
+  p.cg = cg;
+  p.ty = ty;
+  p.tx = tx;
+  p.seg = seg;
+  p.stages = stages;
+  p.lanes = cg / 2;
+  p.strips_x = tx / XT;
+  p.tiles_x = (W + tx - 1) / tx;
+  p.tiles_y = (H + ty - 1) / ty;
+  p.groups = C / cg;
+  p.n_seg = (D + seg - 1) / seg;
+  p.box_bytes = (ty + 2) * (tx + 2) * cg * 2;
+  p.slot_bytes = align128(p.box_bytes);
+  p.out_bytes = align128(ty * tx * cg * 2);
+  p.taps = static_cast<const float*>(taps);
+  p.bias = static_cast<const float*>(bias);
+  const int smem = 128 + stages * p.slot_bytes + 2 * p.out_bytes + 8 * stages;
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)B * p.n_seg * p.groups * p.tiles_y * p.tiles_x;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+
+  EncodeTiled encode = encoder();
+  if (!encode) return -1;
+  const cuuint64_t dims[5] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)D,
+                              (cuuint64_t)B};
+  const cuuint64_t rowb = (cuuint64_t)C * 2;
+  const cuuint64_t strides[4] = {rowb, rowb * W, rowb * W * H, rowb * W * H * D};
+  const cuuint32_t es[5] = {1, 1, 1, 1, 1};
+  CUtensorMap maps[2];
+  const cuuint32_t in_box[5] = {(cuuint32_t)cg, (cuuint32_t)tx + 2, (cuuint32_t)ty + 2, 1, 1};
+  const cuuint32_t out_box[5] = {(cuuint32_t)cg, (cuuint32_t)tx, (cuuint32_t)ty, 1, 1};
+  if (encode(&maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), dims, strides,
+             in_box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return -2;
+  if (encode(&maps[1], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, out, dims, strides, out_box, es,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return -2;
+
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(depthwise3_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  depthwise3_kernel<<<(unsigned)blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], p);
   return (int)cudaGetLastError();
 }

@@ -10,10 +10,19 @@
 // result equals the plain version to the bit.
 //
 // Bound on the card: bytes (one read and one write of each element, one
-// multiply).  Design: a grid-stride loop over 16-byte words (8 elements)
-// when both pointers are 16-byte aligned, and one element at a time for
-// the tail of fewer than 8 elements, or for everything when a pointer is
-// not aligned (a contiguous view can start at any element).
+// multiply).  Design: one 16-byte word (8 elements) a thread, a grid sized
+// to the work (one block per 256 words, no stride loop), 32-bit offsets
+// inside a block, default caching.  The first version (a grid-stride loop
+// capped at 132 x 16 blocks, 64-bit index arithmetic) ran 6 % behind
+// `torch.mul` (NVIDIA H100 80GB HBM3, 700 W; `chip_smoke.py`).  In development runs on the H100 (a probe not kept) at the
+// layout probe's 1 GiB, 2 to 16 independent 16-byte loads a thread before
+// any store, streaming hints (`ld.global.cs`/`st.global.cs`), an L2
+// prefetch hint, and TMA bulk copies through shared memory were all a
+// little slower than one word a thread, which is level with
+// `torch.mul(out=)`: at this size the stream is at the card's practical
+// copy rate either way.  Block 0 also takes the tail of fewer than 8
+// elements.  When a pointer is not 16-byte aligned (a contiguous view can
+// start at any element), a thread takes one element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -23,40 +32,38 @@ namespace {
 
 constexpr int THREADS = 256;
 
-__device__ __forceinline__ __nv_bfloat162 twice(__nv_bfloat162 v) {
-  float2 f = __bfloat1622float2(v);
-  return __floats2bfloat162_rn(2.0f * f.x, 2.0f * f.y);
+__device__ __forceinline__ uint32_t twice2(uint32_t v) {
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
+  const float2 f = __bfloat1622float2(h);
+  h = __floats2bfloat162_rn(2.0f * f.x, 2.0f * f.y);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// One launch: the 16-byte words first (when `vec`), then the elements left.
+__device__ __forceinline__ __nv_bfloat16 twice(__nv_bfloat16 v) {
+  return __float2bfloat16_rn(2.0f * __bfloat162float(v));
+}
+
+// Block i takes words [i * THREADS, (i + 1) * THREADS): 16-byte vectors
+// when `vec` (block 0 also takes the tail of n % 8 elements), else elements.
 __global__ void __launch_bounds__(THREADS)
-scale2_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ y, long long n,
-              bool vec) {
-  const long long stride = (long long)gridDim.x * THREADS;
-  const long long tid = (long long)blockIdx.x * THREADS + threadIdx.x;
-  long long done = 0;
+    scale2_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ y, long long n,
+                  bool vec) {
+  const long long start = (long long)blockIdx.x * THREADS;
+  const int i = threadIdx.x;
   if (vec) {
     const long long n_vec = n / 8;
-    const uint4* xv = reinterpret_cast<const uint4*>(x);
-    uint4* yv = reinterpret_cast<uint4*>(y);
-    for (long long i = tid; i < n_vec; i += stride) {
-      uint4 v = xv[i];
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) h[k] = twice(h[k]);
-      yv[i] = v;
+    if (start + i < n_vec) {
+      uint4 v = reinterpret_cast<const uint4*>(x)[start + i];
+      v.x = twice2(v.x);
+      v.y = twice2(v.y);
+      v.z = twice2(v.z);
+      v.w = twice2(v.w);
+      reinterpret_cast<uint4*>(y)[start + i] = v;
     }
-    done = n_vec * 8;
+    if (blockIdx.x == 0 && i < n % 8) y[n_vec * 8 + i] = twice(x[n_vec * 8 + i]);
+    return;
   }
-  for (long long i = done + tid; i < n; i += stride)
-    y[i] = __float2bfloat16_rn(2.0f * __bfloat162float(x[i]));
-}
-
-unsigned blocks_for(long long work) {
-  // enough blocks to fill 132 SMs several times over; the loop does the rest
-  const long long cap = 132LL * 16;
-  long long b = (work + THREADS - 1) / THREADS;
-  return (unsigned)(b < 1 ? 1 : (b > cap ? cap : b));
+  if (start + i < n) y[start + i] = twice(x[start + i]);
 }
 
 }  // namespace
@@ -66,7 +73,10 @@ extern "C" int scale2_bf16(const void* x, void* y, long long n, void* stream) {
   if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const bool vec = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
-  scale2_kernel<<<blocks_for(vec ? n / 8 + 1 : n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long words = vec ? n / 8 : n;
+  const long long blocks = words > 0 ? (words + THREADS - 1) / THREADS : 1;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  scale2_kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), n, vec);
   return (int)cudaGetLastError();
 }

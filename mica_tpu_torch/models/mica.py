@@ -8,7 +8,7 @@ Parameters are f32 and named after the original network's torch keys
 parameter tree's conversion or an original checkpoint.  Compute runs in
 ``dtype`` (bf16 by default) with f32 InstanceNorm statistics.
 
-Kernel routing:
+Kernel routing, in bf16 compute (``kernel_route``):
 
   * every RDB conv1/2/3 and every transition: ``conv3d_in_relu`` (K1 + K2);
   * the heads' fused conv1 over the three FPN parts: K1, bias and
@@ -18,6 +18,13 @@ Kernel routing:
   * the rest (``feat_conv``, FPN laterals and smooths, head conv2,
     the cascade corrections, the 1x1s) are library convs and matmuls, as
     they were XLA ops outside any Pallas kernel in the JAX package.
+
+In f32 compute every one of those sites takes the library formulation
+the JAX package's f32 takes (``F.conv3d``, grouped for the depthwise,
+then ``instance_norm`` and ReLU), with TF32 off (``exact_f32``): the JAX
+package runs f32 at ``precision="highest"`` and never reaches a Pallas
+kernel in it.  This is a choice by dtype made once a forward, before any
+launch; the kernel wrappers still refuse f32 tensors on the card.
 
 Training (``train=True``) keeps that routing through autograd functions
 with hand-written backward kernels: ``conv3d_in_relu_ad`` (K1 + K4
@@ -34,6 +41,7 @@ package's ``remat_scope="blocks"``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -49,6 +57,37 @@ from ..ops.depthwise import depthwise_conv3_ad
 # dropout units of one forward: the stem, (RDB, DualAttention, transition)
 # of each stage, the FPN and the heads
 _N_UNITS = 12
+
+
+def kernel_route(dtype: torch.dtype) -> bool:
+    """The routing rule: the hand-written kernels (K1/K2, K3, K8 and the
+    training passes behind them) serve bf16 compute; any other dtype takes
+    the library formulations, on every device.  It mirrors the JAX
+    package's gates: ``self.dtype == jnp.bfloat16`` before its depthwise
+    kernel (``mica_tpu/models/mica.py:347-352``) and the bf16-only fused
+    conv kernel (``mica_tpu/ops/wino_pallas.py:859-860``); its f32 convs
+    are XLA's at ``precision="highest"``."""
+    return dtype == torch.bfloat16
+
+
+@contextlib.contextmanager
+def exact_f32(dtype: torch.dtype):
+    """In f32, cuDNN's convs and cuBLAS's matmuls run in full f32 (TF32
+    off) for the duration and the flags are restored after, as the JAX
+    package's f32 runs at ``precision="highest"``.  A training step holds
+    it over its backward too.  Other dtypes leave the flags alone: the bf16
+    training stem's TF32 conv takes bf16-rounded inputs, which TF32
+    multiplies exactly."""
+    if dtype != torch.float32:
+        yield
+        return
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -103,11 +142,11 @@ class Dropout:
 
 
 def _unit(module: nn.Module, x: torch.Tensor, rate: float, seed: Optional[int],
-          train: bool, remat: bool) -> torch.Tensor:
-    """``module(x, rate, drop, train)`` with its own ``Dropout``, under
-    ``torch.utils.checkpoint`` when ``remat``."""
+          train: bool, remat: bool, kernels: bool) -> torch.Tensor:
+    """``module(x, rate, drop, train, kernels)`` with its own ``Dropout``,
+    under ``torch.utils.checkpoint`` when ``remat``."""
     def run(x):
-        return module(x, rate, None if seed is None else Dropout(seed), train)
+        return module(x, rate, None if seed is None else Dropout(seed), train, kernels)
 
     if remat:
         return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
@@ -139,21 +178,41 @@ class Dense(nn.Module):
 
 
 def conv_same(x: torch.Tensor, weight: torch.Tensor,
-              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+              bias: Optional[torch.Tensor] = None, groups: int = 1) -> torch.Tensor:
     """Stride-1 SAME conv of channels-last ``x`` with an OIDHW weight cast
     to x's dtype; a 1x1 is a matmul over channels."""
     dt = x.dtype
     w = weight.to(dt)
-    if w.shape[2:] == (1, 1, 1):
+    if w.shape[2:] == (1, 1, 1) and groups == 1:
         y = F.linear(x, w.reshape(w.shape[0], w.shape[1]))
     else:
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=w.shape[-1] // 2)
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=w.shape[-1] // 2, groups=groups)
         # channels-last in, channels-last out: a no-op copy that guarantees
         # the contiguous (B, D, H, W, C) the kernels take
         y = y.permute(0, 2, 3, 4, 1).contiguous()
     if bias is not None:
         y = y + bias.to(dt)
     return y
+
+
+def conv_in_relu_library(parts, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """relu(instance_norm(conv3x3(concat(parts)) + bias)) from library
+    ops: the f32 route of the RDB and transition convs, as the JAX
+    package's f32 computes them."""
+    x = parts[0] if len(parts) == 1 else torch.cat(list(parts), dim=-1)
+    return torch.relu(instance_norm(conv_same(x, weight, bias)))
+
+
+def _conv_in_relu(train: bool, kernels: bool):
+    """The conv + IN + ReLU of an RDB or transition site on this route."""
+    if not kernels:
+        return conv_in_relu_library
+    return conv3d_in_relu_ad if train else conv3d_in_relu
+
+
+def depthwise_library(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The DualAttention local conv as a grouped library conv (f32 route)."""
+    return conv_same(x, weight, bias, groups=x.shape[-1])
 
 
 def _slots(**mods) -> nn.ModuleDict:
@@ -228,19 +287,21 @@ class MultiScaleInput(nn.Module):
                 self._stem_cache = (key, stem_ops.pack_weight(stem_ops.combine_weights(ws), dt))
         return self._stem_cache[1]
 
-    def stem(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def stem(self, x: torch.Tensor, train: bool = False, kernels: bool = True) -> torch.Tensor:
         """The four convs as one 9^3 conv (kernels zero-embedded, rounded
         to x's dtype as the JAX stem does), f32 accumulation and bias, cast
-        to x's dtype: K8 when not training.  K8, like the kernel it
-        replaces, has no backward (on the card its wrapper refuses tensors
-        that autograd records), so training keeps a library conv: at even
-        sizes the JAX package's space-to-depth form (fold 2 per axis: Cin 8,
-        a 5^3 kernel), which a Cin=1 library conv runs far below its rate.
-        Under training the conv's output is cast first and the bias added in
-        x's dtype, as the JAX training path emits the compute dtype."""
+        to x's dtype: K8 when not training and ``kernels``.  K8, like the
+        kernel it replaces, has no backward (on the card its wrapper refuses
+        tensors that autograd records), so training keeps a library conv: at
+        even sizes the JAX package's space-to-depth form (fold 2 per axis:
+        Cin 8, a 5^3 kernel), which a Cin=1 library conv runs far below its
+        rate.  The f32 route (``kernels`` False) takes that library conv
+        too, as the JAX package's f32 stem is XLA's.  Under training the
+        conv's output is cast first and the bias added in x's dtype, as the
+        JAX training path emits the compute dtype."""
         dt = x.dtype
         b = torch.cat([conv.bias for conv in self.exp_convs]).float()
-        if not train:
+        if not train and kernels:
             return stem_ops.stem_conv(x[..., 0], self._packed_stem_weight(dt), b)
         w = stem_ops.combine_weights([conv.weight.to(dt).float() for conv in self.exp_convs])
         xin = x.float().permute(0, 4, 1, 2, 3)        # (B, 1, D, H, W)
@@ -251,10 +312,11 @@ class MultiScaleInput(nn.Module):
         return y.permute(0, 2, 3, 4, 1).to(dt) + b.to(dt)
 
     def forward(self, exp_map: torch.Tensor, af: Optional[torch.Tensor], rate: float = 0.0,
-                drop: Optional[Dropout] = None, train: bool = False) -> torch.Tensor:
+                drop: Optional[Dropout] = None, train: bool = False,
+                kernels: bool = True) -> torch.Tensor:
         if drop is not None:
             exp_map = drop.channels(exp_map, rate)
-        x_exp = self.stem(exp_map, train)
+        x_exp = self.stem(exp_map, train, kernels)
         a = torch.relu(self.exp_attention["1"](global_avg_pool(x_exp)))
         a = torch.sigmoid(self.exp_attention["3"](a))
         x_exp_enh = x_exp * a
@@ -296,8 +358,8 @@ class ResidualDenseBlock(nn.Module):
         self.se = SEBlock(c)
 
     def forward(self, x: torch.Tensor, rate: float = 0.0, drop: Optional[Dropout] = None,
-                train: bool = False) -> torch.Tensor:
-        fused = conv3d_in_relu_ad if train else conv3d_in_relu
+                train: bool = False, kernels: bool = True) -> torch.Tensor:
+        fused = _conv_in_relu(train, kernels)
 
         def block(parts, slot):
             conv = slot["0"]
@@ -318,9 +380,10 @@ class DualAttention(nn.Module):
         self.fusion = Conv(2 * c, c, 1)
 
     def forward(self, x: torch.Tensor, rate: float = 0.0, drop: Optional[Dropout] = None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, kernels: bool = True) -> torch.Tensor:
         lc = self.local_attn["0"]
-        local = torch.relu(instance_norm(depthwise_conv3_ad(x, lc.weight, lc.bias)))
+        conv = depthwise_conv3_ad if kernels else depthwise_library
+        local = torch.relu(instance_norm(conv(x, lc.weight, lc.bias)))
         g = torch.relu(self.global_attn["1"](global_avg_pool(x)))
         if drop is not None:
             local = drop.channels(local, rate)
@@ -338,16 +401,14 @@ class EncoderStage(nn.Module):
 
     def forward(self, x: torch.Tensor, rate: float = 0.0,
                 seeds: Sequence[Optional[int]] = (None, None, None), train: bool = False,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, kernels: bool = True) -> torch.Tensor:
         """``seeds``: the dropout seeds of the RDB, the DualAttention and
         the transition; ``remat`` checkpoints the RDB and the
         DualAttention."""
-        x = _unit(self.dense_block, x, rate, seeds[0], train, remat)
-        x = _unit(self.dual_attn, x, rate, seeds[1], train, remat)
+        x = _unit(self.dense_block, x, rate, seeds[0], train, remat, kernels)
+        x = _unit(self.dual_attn, x, rate, seeds[1], train, remat, kernels)
         t = self.transition["0"]
-        if not train:
-            return conv3d_in_relu([x], t.weight, t.bias)
-        h = conv3d_in_relu_ad([x], t.weight, t.bias)
+        h = _conv_in_relu(train, kernels)([x], t.weight, t.bias)
         return h if seeds[2] is None else Dropout(seeds[2]).channels(h, rate * 0.5)
 
 
@@ -437,17 +498,18 @@ class MICA(nn.Module):
         return self
 
     def heads(self, fpn, out_slice: Optional[slice], rate: float = 0.0,
-              drop: Optional[Dropout] = None, train: bool = False):
+              drop: Optional[Dropout] = None, train: bool = False, kernels: bool = True):
         """The three cascaded heads over one fused 192-out conv1 of the FPN
         parts (K1, no bias, no statistics; a library conv of their concat
-        under training, as in the JAX package); bb/ca logits (f32) are cast
-        back to the compute dtype for the cascade corrections."""
+        under training or on the f32 route, as in the JAX package); bb/ca
+        logits (f32) are cast back to the compute dtype for the cascade
+        corrections."""
         dt = fpn[0].dtype
         fpn_ch = sum(p.shape[-1] for p in fpn)
         bb_h, ca_h, aa_h = self.backbone_head, self.ca_head, self.aa_head
         k_big = torch.cat([bb_h.conv1.weight, ca_h.conv1.weight[:, :fpn_ch],
                            aa_h.conv1.weight[:, :fpn_ch]], dim=0)
-        if train:
+        if train or not kernels:
             big = conv_same(torch.cat(list(fpn), dim=-1), k_big)
         else:
             big, _ = conv3d(list(fpn), k_big, None, with_stats=False)
@@ -469,7 +531,9 @@ class MICA(nn.Module):
                 train: bool = False, generator: Optional[torch.Generator] = None):
         """``train`` takes the differentiable kernels; with
         ``dropout_rate`` > 0 it also drops, drawing one seed per unit from
-        ``generator`` (a CPU generator draws them without a device sync)."""
+        ``generator`` (a CPU generator draws them without a device sync).
+        The route (kernels in bf16, library ops otherwise) is decided here
+        once, from ``self.dtype``."""
         dt = self.dtype
         seeds = [None] * _N_UNITS
         if train and dropout_rate > 0.0:
@@ -479,24 +543,25 @@ class MICA(nn.Module):
                                   device=generator.device).tolist()
         rate = dropout_rate if train else 0.0
         remat = self.remat and train
+        kernels = kernel_route(dt)
 
         def drop(i):
             return None if seeds[i] is None else Dropout(seeds[i])
 
-        x = self.input_processing(exp_map.to(dt), None if af is None else af.to(dt),
-                                  rate, drop(0), train)
-        feats = []
-        for i, stage in enumerate(self.encoder):
-            x = stage(x, rate, seeds[1 + 3 * i:4 + 3 * i], train, remat)
-            feats.append(x)
-        fpn = self.fpn(feats, rate, drop(10))
-
         def heads(*parts):
-            return self.heads(parts, out_slice, 2 * rate, drop(11), train)
+            return self.heads(parts, out_slice, 2 * rate, drop(11), train, kernels)
 
-        if remat:
-            return checkpoint(heads, *fpn, use_reentrant=False, preserve_rng_state=False)
-        return heads(*fpn)
+        with exact_f32(dt):
+            x = self.input_processing(exp_map.to(dt), None if af is None else af.to(dt),
+                                      rate, drop(0), train, kernels)
+            feats = []
+            for i, stage in enumerate(self.encoder):
+                x = stage(x, rate, seeds[1 + 3 * i:4 + 3 * i], train, remat, kernels)
+                feats.append(x)
+            fpn = self.fpn(feats, rate, drop(10))
+            if remat:
+                return checkpoint(heads, *fpn, use_reentrant=False, preserve_rng_state=False)
+            return heads(*fpn)
 
 
 def dropout_rate_for_epoch(epoch: int, schedule=(0.01, 0.05, 0.1)) -> float:

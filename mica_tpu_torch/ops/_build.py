@@ -7,9 +7,10 @@ use, never at import, with
 
 into ``build/mica_tpu_torch/<name>-<hash>.so`` at the repository root (the
 hash covers the sources and flags, so an edited source never loads a stale
-library).  ``conv3d_stats`` adds ``-Xptxas -v``: its registers, shared
-memory and spills per kernel are kept in ``logs``.  The library is loaded with ``ctypes``; callers pass pointers
-from ``Tensor.data_ptr()`` and the current stream as Python ints.
+library).  ``conv3d_stats`` and ``depthwise3`` add ``-Xptxas -v``: their
+registers, shared memory and spills per kernel are kept in ``logs``.  The
+library is loaded with ``ctypes``; callers pass pointers from
+``Tensor.data_ptr()`` and the current stream as Python ints.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mica_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-EXTRA_FLAGS = {"conv3d_stats": ["-Xptxas", "-v"]}
+EXTRA_FLAGS = {"conv3d_stats": ["-Xptxas", "-v"], "depthwise3": ["-Xptxas", "-v"]}
 SOURCES = ("conv3d_stats", "depthwise3", "depthwise3_grads", "stem9", "window_copy",
            "scale2")
 

@@ -273,7 +273,7 @@ def conv3d(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
     for p in parts:
         if p.device != parts[0].device or p.dtype != _BF16 or not p.is_contiguous():
             raise TypeError("conv3d on the card takes contiguous bf16 operands on "
-                            "one device; f32 parity runs on the CPU")
+                            "one device; the model routes f32 to the library convs")
         if p.dim() != 5 or tuple(p.shape[:4]) != (b, d, h, w) or p.shape[4] % 32:
             raise ValueError(f"operand shape {tuple(p.shape)}: needs (B,D,H,W,Ci) "
                              "with a shared (B,D,H,W) and Ci % 32 == 0")

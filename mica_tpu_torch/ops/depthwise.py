@@ -4,7 +4,10 @@ Counterpart of ``mica_tpu/ops/depthwise_pallas.py``.  K3 ``depthwise_conv3``
 (CUDA C++, ``csrc/depthwise3.cu``) replaces ``depthwise_conv3_pallas``:
 f32 accumulation with the f32 taps, output in the input's dtype.  It does
 27 multiply-adds per element against one read and one write, so it is
-bounded by device-memory bandwidth (see the source's note).
+bounded by device-memory bandwidth (see the source's note).  A block of
+the kernel owns a (TY x TX) tile of (y, x) columns x CG channels of one
+sample over a segment of z; its tile plan (``k3_plan``) is computed here
+and handed to the kernel.
 
 Training (``depthwise_conv3_ad``, the ``DepthwiseConv3Fn`` autograd
 function, counterpart of ``depthwise_conv3_pallas_ad``) adds K7
@@ -21,6 +24,8 @@ kernel or raises.  ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,7 +35,7 @@ from . import _build
 launches = {"depthwise3": 0, "depthwise3_grads": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_ARGS = [_P, _P, _P, _P] + [_I] * 10 + [_P]
 _GRAD_ARGS = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
 
 
@@ -44,24 +49,133 @@ def depthwise_conv3_plain(x: torch.Tensor, weight: torch.Tensor,
     return y.permute(0, 2, 3, 4, 1).to(x.dtype)
 
 
+XT = 8                  # x positions a thread computes (``XT`` in the source)
+MAX_THREADS = 128
+STAGES = 4              # input planes in the shared-memory ring
+SMEM_MAX = 232448       # shared memory a block can use on the H100 (227 KB)
+
+
+def _align128(v: int) -> int:
+    return -(-v // 128) * 128
+
+
+@dataclass(frozen=True)
+class K3Plan:
+    """K3's tile plan, handed to the kernel as it is.
+
+    A block owns ``ty`` x ``tx`` (y, x) columns x ``cg`` channels of one
+    sample over ``seg`` output planes of z: ``cg / 2`` lanes (two channels
+    each) times ``ty * tx / XT`` strips of ``XT`` x positions.  Each input
+    plane's (ty + 2) x (tx + 2) x cg box, zero-filled outside the volume,
+    lands in a ring of ``stages`` slots; a segment reads its two
+    neighbouring planes as well.  Blocks run x tile fastest, then y tile,
+    channel group, z segment, sample (``block``)."""
+
+    shape: Tuple[int, int, int, int]
+    c: int
+    cg: int
+    ty: int
+    tx: int
+    seg: int
+    stages: int
+
+    @property
+    def lanes(self) -> int:
+        return self.cg // 2
+
+    @property
+    def threads(self) -> int:
+        return self.lanes * self.ty * (self.tx // XT)
+
+    @property
+    def grid(self) -> Tuple[int, int, int, int, int]:
+        """(tiles in x, tiles in y, channel groups, z segments, samples)."""
+        b, d, h, w = self.shape
+        return (-(-w // self.tx), -(-h // self.ty), self.c // self.cg, -(-d // self.seg), b)
+
+    @property
+    def blocks(self) -> int:
+        n = 1
+        for v in self.grid:
+            n *= v
+        return n
+
+    @property
+    def box_bytes(self) -> int:
+        return (self.ty + 2) * (self.tx + 2) * self.cg * 2
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory: 128 B of alignment slack, the input ring,
+        two output tiles (a TMA store drains one while the next fills) and
+        the ring's barriers."""
+        return (128 + self.stages * _align128(self.box_bytes)
+                + 2 * _align128(self.ty * self.tx * self.cg * 2) + 8 * self.stages)
+
+    def block(self, i: int) -> Tuple[int, int, int, int, int]:
+        """(b, z0, c0, y0, x0) of block ``i``; it writes planes z0 up to
+        z0 + seg of its tile, clipped to the volume."""
+        nx, ny, ng, ns, _ = self.grid
+        i, bx = divmod(i, nx)
+        i, by = divmod(i, ny)
+        i, bg = divmod(i, ng)
+        b, bs = divmod(i, ns)
+        return b, bs * self.seg, bg * self.cg, by * self.ty, bx * self.tx
+
+
+def k3_plan(shape: Sequence[int], c: int, sm_count: int = 132) -> K3Plan:
+    """The tile plan of K3 for x (B, D, H, W, C) with ``shape`` (B, D, H, W).
+    Raises ``ValueError`` for a width the kernel does not take (C % 8)."""
+    b, d, h, w = (int(v) for v in shape)
+    c = int(c)
+    if c <= 0 or c % 8 or min(b, d, h, w) <= 0:
+        raise ValueError(f"K3 takes C % 8 == 0 and a nonempty volume, got C={c}, "
+                         f"shape {(b, d, h, w)}")
+    # the widest channel group up to 64 (32 lanes: a warp reads 128
+    # contiguous bytes of one voxel)
+    cg = max(g for g in range(8, 65, 8) if c % g == 0)
+    strips = max(1, MAX_THREADS // (cg // 2))
+    ty, tx = 1, XT
+    while 2 * ty * (tx // XT) <= strips:       # as square a tile as the threads allow
+        if tx <= ty:
+            tx *= 2
+        else:
+            ty *= 2
+    ty, tx = min(ty, h), min(tx, -(-w // XT) * XT)
+    plan = K3Plan((b, d, h, w), c, cg, ty, tx, d, STAGES)
+    # split z into segments while the grid is short of two waves of 4
+    # blocks an SM (batch 1, a short last batch), each at least 8 planes deep
+    nx, ny, ng, _, _ = plan.grid
+    n_seg = min(-(-8 * sm_count // (nx * ny * ng * b)), max(1, d // 8))
+    seg = -(-d // n_seg)
+    return K3Plan((b, d, h, w), c, cg, ty, tx, seg, STAGES)
+
+
 def depthwise_conv3(x: torch.Tensor, weight: torch.Tensor,
                     bias: torch.Tensor) -> torch.Tensor:
-    """K3.  x (B, D, H, W, C); weight (C, 1, 3, 3, 3); bias (C,)."""
+    """K3.  x (B, D, H, W, C); weight (C, 1, 3, 3, 3); bias (C,).  On the
+    card x must be contiguous bf16 at a 16-byte-aligned address (TMA reads
+    it in place)."""
     if x.device.type == "cpu":
         return depthwise_conv3_plain(x, weight, bias)
     b, d, h, w, c = x.shape
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise TypeError("depthwise_conv3 on the card takes a contiguous bf16 "
-                        "tensor; f32 parity runs on the CPU")
+                        "tensor; the model routes f32 to the library convs")
     if tuple(weight.shape) != (c, 1, 3, 3, 3) or c % 8:
         raise ValueError(f"weight {tuple(weight.shape)} for C={c}: needs "
                          "(C,1,3,3,3) with C % 8 == 0")
+    if x.data_ptr() % 16:
+        raise ValueError("depthwise_conv3 on the card reads x by TMA, which needs a "
+                         "16-byte-aligned address; this one is not (it is not copied)")
+    plan = k3_plan((b, d, h, w), c)
     taps = weight.reshape(c, 27).t().to(device=x.device, dtype=torch.float32).contiguous()
     bf = bias.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty_like(x)
     err = _build.function("depthwise3", "depthwise3_bf16", _ARGS)(
         x.data_ptr(), taps.data_ptr(), bf.data_ptr(), out.data_ptr(),
-        b, d, h, w, c, torch.cuda.current_stream(x.device).cuda_stream)
+        b, d, h, w, c, plan.cg, plan.ty, plan.tx, plan.seg, plan.stages,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "depthwise3")
     launches["depthwise3"] += 1
     return out

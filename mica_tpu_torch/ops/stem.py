@@ -80,8 +80,8 @@ def stem_conv(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor) -> torc
         raise RuntimeError("stem_conv has no backward on the card: call it under "
                            "torch.no_grad(), or run the model with train=True")
     if x.dtype != torch.bfloat16 or not x.is_contiguous() or not packed.is_contiguous():
-        raise TypeError("stem_conv on the card takes contiguous bf16 tensors; f32 parity "
-                        "runs on the CPU")
+        raise TypeError("stem_conv on the card takes contiguous bf16 tensors; the model "
+                        "routes f32 to the library conv")
     if c % 32 or tuple(bias.shape) != (c,):
         raise ValueError(f"stem_conv needs C % 32 == 0 and a (C,) bias, got C={c}, "
                          f"bias {tuple(bias.shape)}")

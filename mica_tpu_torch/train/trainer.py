@@ -33,7 +33,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import torch
 
 from ..device import resolve_device
-from ..models.mica import MICA, dropout_rate_for_epoch
+from ..models.mica import MICA, dropout_rate_for_epoch, exact_f32
 from . import augment
 from .loss import class_weight_denominators, multi_task_loss, task_lambdas
 
@@ -111,8 +111,9 @@ class Trainer:
                  exp_only_prob: float = 0.4, use_augmentation: bool = True,
                  seed: int = 2022, microbatch: Optional[int] = None, device=None):
         """``device`` None means the card (raises where there is none); the
-        CPU runs the kernels' plain versions.  On the card the compute
-        dtype must be bf16."""
+        CPU runs the kernels' plain versions.  bf16 compute takes the
+        kernels; f32 takes the library route with TF32 off, over the
+        backward too (``train_step``), as the JAX package's f32 does."""
         self.device = resolve_device(device)
         self.seed = seed
         self.model = MICA(base=base_filters, dtype=dtype, remat=True).to(self.device)
@@ -144,6 +145,11 @@ class Trainer:
         (N,24,D,H,W), bb, ca, aa (N,D,H,W) integer), numpy or tensors.
         Updates the model and ``state`` in place; returns the step's
         metrics as device tensors."""
+        with exact_f32(self.model.dtype):
+            return self._train_step(state, batch, lambdas, dropout_rate)
+
+    def _train_step(self, state: TrainState, batch, lambdas,
+                    dropout_rate: float) -> Dict[str, torch.Tensor]:
         density, af3, bb, ca, aa = self._to_device(batch)
         dens = density[:, None].float()
         af3 = af3.float()

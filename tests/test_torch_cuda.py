@@ -17,7 +17,8 @@ bf16 rounding); K9 and K10 are exact; device candidate extraction equals
 the host path in order and ``pred`` and to 1e-12 in ``coords`` and ``aa``.
 K11 and K13 are bitwise equal to their bf16 plain versions, in each mode
 and in place or not; K12's f32 sums stay within 1e-5 of the sum of the
-terms' magnitudes.
+terms' magnitudes.  The f32 route of the engine (library convs, TF32 off)
+stays within 1e-4 of the CPU's probabilities.
 """
 
 import pytest
@@ -130,6 +131,66 @@ def test_depthwise_matches_plain(gen, c):
     b = torch.randn(c, device="cuda", generator=gen)
     _close(depthwise.depthwise_conv3(x, w, b),
            depthwise.depthwise_conv3_plain(x.float(), w, b))
+
+
+@pytest.mark.parametrize("shape,flip", [
+    ((1, 64, 64, 64, 64), False),     # batch 1: the grid is cut into z segments
+    ((3, 5, 7, 9, 16), False),        # H, W not multiples of the tile; C 16
+    ((1, 3, 1, 130, 24), False),      # C 24: a 24-channel group; 9 x tiles
+    ((2, 1, 13, 21, 64), False),      # D = 1: both z neighbours outside
+    ((2, 16, 16, 16, 128), True),     # the dx form: flipped taps, zero bias
+])
+def test_depthwise_odd_shapes_and_dx_form_match_plain(gen, shape, flip):
+    from mica_tpu_torch.ops import depthwise
+
+    c = shape[-1]
+    x = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+    w = torch.randn(c, 1, 3, 3, 3, device="cuda", generator=gen)
+    b = torch.randn(c, device="cuda", generator=gen)
+    if flip:
+        w, b = w.flip(2, 3, 4), torch.zeros_like(b)
+    before = depthwise.launches["depthwise3"]
+    got = depthwise.depthwise_conv3(x, w, b)
+    assert depthwise.launches["depthwise3"] == before + 1
+    _close(got, depthwise.depthwise_conv3_plain(x.float(), w, b))
+
+
+def test_depthwise_refuses_an_unaligned_operand(gen):
+    from mica_tpu_torch.ops import depthwise
+
+    flat = torch.randn(2 * 4 * 4 * 4 * 8 + 4, device="cuda", generator=gen).to(torch.bfloat16)
+    x = flat[4:].view(2, 4, 4, 4, 8)          # contiguous, 8 bytes past an aligned start
+    assert x.is_contiguous() and x.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        depthwise.depthwise_conv3(x, torch.randn(8, 1, 3, 3, 3, device="cuda"),
+                                  torch.zeros(8, device="cuda"))
+
+
+def test_predict_volume_f32_on_the_card_matches_the_cpu(gen):
+    """f32 takes the library route on the card, with TF32 off: its
+    probabilities agree with the CPU's to 1e-4 and no K1/K2/K3/K8 kernel
+    launches (base 16: the f32 route has no width rule)."""
+    import numpy as np
+
+    from mica_tpu_torch.infer import engine
+    from mica_tpu_torch.models.mica import MICA
+    from mica_tpu_torch.ops import conv3d_in, depthwise, stem
+
+    rng = np.random.default_rng(5)
+    vol = rng.random((30, 26, 22)).astype(np.float32)
+    af = (rng.random((24, 30, 26, 22)) < 0.05).astype(np.float32)
+    model = MICA(base=16, dtype=torch.float32).init_weights(torch.Generator().manual_seed(4))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pred = engine.SlidingWindowPredictor(model.state_dict(), batch_size=2,
+                                             dtype=torch.float32, base_filters=16, core=12,
+                                             halo=4, device=dev)
+        before = dict(conv3d_in.launches, **depthwise.launches, **stem.launches)
+        out[dev] = pred.predict_volume(vol, af)
+        after = dict(conv3d_in.launches, **depthwise.launches, **stem.launches)
+        assert after == before
+    for k in ("backbone_probability", "carbon_alpha_probability", "amino_acid_probability"):
+        np.testing.assert_allclose(out["cuda"][k], out["cpu"][k], rtol=0, atol=1e-4)
 
 
 def test_wrappers_refuse_f32_on_card(gen):

@@ -38,6 +38,7 @@ from mica_tpu.train import data as jdata
 from mica_tpu.train import loss as jloss
 from mica_tpu.train.trainer import PlateauScheduler as JaxPlateau
 from mica_tpu.train.trainer import adaptive_clip as jax_adaptive_clip
+from mica_tpu_torch.models import mica as mica_mod
 from mica_tpu_torch.models.convert import state_dict_from_jax_params
 from mica_tpu_torch.models.mica import MICA, Dropout, dropout_rate_for_epoch
 from mica_tpu_torch.train import augment, data, loss
@@ -250,7 +251,8 @@ def _grad_inputs(n=2, d=16, seed=11):
     return x, af, tgt
 
 
-def test_model_value_and_grad_matches_jax(jax_params):
+@pytest.fixture(scope="module")
+def jax_value_and_grad(jax_params):
     x, af, tgt = _grad_inputs()
     lam = jloss.task_lambdas(3)
 
@@ -263,6 +265,21 @@ def test_model_value_and_grad_matches_jax(jax_params):
 
     l_ref, g_ref = jax.jit(jax.value_and_grad(loss_j))(jax_params)
     ref = {k: v.numpy().astype(np.float64) for k, v in state_dict_from_jax_params(g_ref).items()}
+    return float(l_ref), ref
+
+
+@pytest.mark.parametrize("route", ["kernels", "library"])
+def test_model_value_and_grad_matches_jax(jax_params, jax_value_and_grad, route, monkeypatch):
+    """Both routes of the f32 model against the JAX package's f32 value and
+    gradient: the kernel route (forced here; bf16 takes it), whose custom
+    backward gives the fused convs' biases a gradient of exactly 0, and
+    the library route that f32 takes (``kernel_route``), whose autograd
+    gives them noise, as JAX's does."""
+    if route == "kernels":
+        monkeypatch.setattr(mica_mod, "kernel_route", lambda dtype: True)
+    x, af, tgt = _grad_inputs()
+    lam = jloss.task_lambdas(3)
+    l_ref, ref = jax_value_and_grad
 
     model = MICA(base=BASE, dtype=torch.float32, remat=True)
     model.load_state_dict(state_dict_from_jax_params(jax_params), strict=True)
@@ -271,14 +288,14 @@ def test_model_value_and_grad_matches_jax(jax_params):
     l_got.backward()
     got = {k: p.grad.numpy().astype(np.float64) for k, p in model.named_parameters()}
 
-    np.testing.assert_allclose(l_got.item(), float(l_ref), rtol=1e-4)
+    np.testing.assert_allclose(l_got.item(), l_ref, rtol=1e-4)
     assert got.keys() == ref.keys()
     gmax = max(np.linalg.norm(v) for v in ref.values())
     fused_biases = [k for k in got if k.endswith(".bias") and (
         ".conv1.0." in k or ".conv2.0." in k or ".conv3.0." in k or ".transition." in k)]
     assert len(fused_biases) == 12
     for k in fused_biases:
-        assert not got[k].any(), k
+        assert (not got[k].any()) == (route == "kernels"), k
     n_compared = 0
     for k, r in ref.items():
         a, nr = got[k].ravel(), np.linalg.norm(r)
@@ -334,21 +351,23 @@ def test_bf16_gradient_no_farther_from_f32_than_jax(jax_params):
     assert ours[0] >= ref[0] and ours[1] >= ref[1], (ours, ref)
 
 
-def test_custom_backward_matches_autograd_of_the_plain_forward():
+def test_custom_backward_matches_autograd_of_the_plain_forward(monkeypatch):
     """On the CPU the inference forward is plain PyTorch (K1/K2/K3's plain
     versions), so autograd differentiates it independently of the custom
     backward (K4-K7's plain versions, the dx conv, db = 0) that
     ``train=True`` takes: every gradient agrees to 1e-4 relative L2
     (measured 6e-6; the stem's and heads' training-mode casts are
-    identities in f32).  The stem has no custom backward and takes its
-    training route in both runs: its inference route sums the same conv
-    in another order, and the network's gradients carry that rounding to
-    1e-3, which is not what this test is about."""
+    identities in f32).  The kernel route is forced, since f32 takes the
+    library route by default (``kernel_route``).  The stem has no custom
+    backward and takes its training route in both runs: its inference
+    route sums the same conv in another order, and the network's gradients
+    carry that rounding to 1e-3, which is not what this test is about."""
+    monkeypatch.setattr(mica_mod, "kernel_route", lambda dtype: True)
     x, af, tgt = _grad_inputs(seed=12)
     lam = loss.task_lambdas(0)
     model = MICA(base=BASE, dtype=torch.float32).init_weights(torch.Generator().manual_seed(3))
     stem = model.input_processing.stem
-    model.input_processing.stem = lambda x, train=False: stem(x, True)
+    model.input_processing.stem = lambda x, train=False, kernels=True: stem(x, True, kernels)
     grads = []
     for train in (True, False):
         model.zero_grad(set_to_none=True)
