@@ -7,7 +7,7 @@ Phases, each printing what it found; any failure ends the run non-zero:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build the CUDA kernels from ``mica_tpu_torch/csrc`` (one ``nvcc`` per
-     source, all at once), then K1's and K3's ``-Xptxas -v`` report
+     source, all at once), then K1's, K3's and K7's ``-Xptxas -v`` report
      (registers, barriers, spills per kernel);
   3. hold every kernel against its plain PyTorch version at the shapes of
      its path (batch 8, 64^3 windows, the widths of MICA at base 64; for
@@ -19,6 +19,9 @@ Phases, each printing what it found; any failure ends the run non-zero:
      the bf16 peak and its ratio to cuDNN, and the sums over a forward and
      over a training step's dx convs; K3 runs in the forward and in the dx
      form, on odd shapes too, with its share of the bound and its tile plan;
+     K7 (20 launches a site) on K3's odd shapes too, with its share of the
+     bound (>= 50 % at each training site) and its tile plan, and two calls
+     on the same inputs must agree to the bit;
   4. the prediction path: ``predict_map`` on a synthetic map written to an
      MRC, with a docked model for the AF3 encoding, random weights from
      ``--seed``, bf16, batch 8, core 48 / halo 8, twice: the process's
@@ -480,20 +483,41 @@ def check_k5_k6(torch, conv3d_in, g, detail):
     return rows5, rows6
 
 
+def k7_plan_line(depthwise, shape, c) -> str:
+    """K7's tile plan for x and g of ``shape`` (B, D, H, W) and C channels."""
+    p = depthwise.k7_plan(shape, c)
+    return (f"plan TY {p.ty}, TX {p.tx}, CG {p.cg}, z segments of {p.seg} ({p.grid[3]} a "
+            f"sample), {p.threads} threads, {p.blocks} blocks, {p.smem} B shared, "
+            f"{p.rows} x 28 x {c} f32 partials")
+
+
+def _k7_held(torch, depthwise, x, gr, site):
+    """K7 against its plain version within 1e-5 of sum |x g| per tap, and
+    a second call on the same inputs equal to the bit."""
+    got = depthwise.depthwise_grads(x, gr)
+    again = depthwise.depthwise_grads(x, gr)
+    torch.cuda.synchronize()
+    want = depthwise.depthwise_grads_plain(x, gr)
+    mag = depthwise.depthwise_grads_plain(x.abs(), gr.abs())
+    err = (got - want).abs().max().item()
+    excess = ((got - want).abs() - 1e-5 * mag).max().item()
+    fail_if(not excess <= 1e-3, f"K7 {site}: err {err} beyond 1e-5 of the magnitudes")
+    fail_if(not torch.equal(got, again), f"K7 {site}: two calls differ (not deterministic)")
+    return err
+
+
 def check_k7(torch, depthwise, g, detail):
+    """K7 at the three DualAttention widths of a training step and on K3's
+    odd shapes, against the plain version in f32 from the same bf16 inputs
+    (within 1e-5 of the sum of the terms' magnitudes per tap), bitwise
+    equal from call to call, each main-path site at >= 50 % of its bound."""
     rows = []
     for c in K7_PER_STEP:
         x = torch.randn(BATCH, WIN, WIN, WIN, c, device="cuda", generator=g).to(torch.bfloat16)
         gr = torch.randn(BATCH, WIN, WIN, WIN, c, device="cuda", generator=g).to(torch.bfloat16)
-        got = depthwise.depthwise_grads(x, gr)
-        torch.cuda.synchronize()
-        want = depthwise.depthwise_grads_plain(x, gr)
-        mag = depthwise.depthwise_grads_plain(x.abs(), gr.abs())
-        err = (got - want).abs().max().item()
-        excess = ((got - want).abs() - 1e-5 * mag).max().item()
-        fail_if(not excess <= 1e-3, f"K7 C={c}: err {err} beyond 1e-5 of the magnitudes")
+        err = _k7_held(torch, depthwise, x, gr, f"C={c}")
         bnd, by = bound_ms(2.0 * 28 * x.numel(), 4.0 * x.numel() + 4.0 * 28 * c, PEAK_F32)
-        ms = cuda_ms(lambda: depthwise.depthwise_grads(x, gr), reps=5)
+        ms = cuda_ms(lambda: depthwise.depthwise_grads(x, gr), reps=20)
         plain = cuda_ms(lambda: depthwise.depthwise_grads_plain(x, gr), reps=1)
         xl, gl = x.permute(0, 4, 1, 2, 3), gr.permute(0, 4, 1, 2, 3)
 
@@ -503,13 +527,31 @@ def check_k7(torch, depthwise, g, detail):
 
         lib = cuda_ms(lib_grads)
         rows.append(dict(site=c, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                         bound_ms=bnd, bound_by=by))
-        print(f"K7 C={c}: max_abs_err {err:.3e} (tol 1e-5 of sum |x g| per tap); time "
-              f"{ms:.3f} ms, plain {plain:.3f} ms, library weight-grad conv + sum {lib:.3f} ms, "
-              f"bound {bnd:.3f} ms ({by})", flush=True)
-        del x, gr, want, mag
+                         bound_ms=bnd, bound_by=by, bound_share=bnd / ms))
+        print(f"K7 C={c}: max_abs_err {err:.3e} (tol 1e-5 of sum |x g| per tap), bitwise "
+              f"equal from call to call; time {ms:.4f} ms ({100 * bnd / ms:.1f} % of its bound), "
+              f"plain {plain:.3f} ms, library weight-grad conv + sum {lib:.3f} ms, bound "
+              f"{bnd:.4f} ms ({by}); {k7_plan_line(depthwise, x.shape[:4], c)}", flush=True)
+        del x, gr
         torch.cuda.empty_cache()
-    detail["depthwise3_grads"] = rows
+    step = sum(r["ms"] * K7_PER_STEP[r["site"]] for r in rows)
+    bnd = sum(r["bound_ms"] * K7_PER_STEP[r["site"]] for r in rows)
+    print(f"K7, a training step's {sum(K7_PER_STEP.values())} launches: {step:.4f} ms against "
+          f"a bound of {bnd:.4f} ms ({100 * bnd / step:.1f} %)", flush=True)
+    for r in rows:
+        fail_if(r["bound_share"] < 0.5, f"K7 C={r['site']}: {100 * r['bound_share']:.1f} % "
+                "of its bound, short of 50 %")
+    odd = []
+    for shape in K3_ODD:
+        c = shape[-1]
+        site = "x".join(str(v) for v in shape)
+        x = torch.randn(*shape, device="cuda", generator=g).to(torch.bfloat16)
+        gr = torch.randn(*shape, device="cuda", generator=g).to(torch.bfloat16)
+        err = _k7_held(torch, depthwise, x, gr, site)
+        odd.append(dict(site=site, max_abs_err=err))
+        print(f"K7 {site}: max_abs_err {err:.3e}, bitwise equal from call to call; "
+              f"{k7_plan_line(depthwise, shape[:4], c)}", flush=True)
+    detail["depthwise3_grads"], detail["depthwise3_grads_odd"] = rows, odd
     return rows
 
 
@@ -976,7 +1018,7 @@ def profile_forward(torch, model, seed, detail):
 
 TRAIN_KERNELS = {"conv3d_stats": "conv3d_stats_kernel", "in_apply_ad": "in_apply_ad_kernel",
                  "in_bwd_stats": "in_bwd_stats_kernel", "in_bwd_apply": "in_bwd_apply_kernel",
-                 "depthwise3": "depthwise3_kernel", "depthwise3_grads": "depthwise3_grads_kernel"}
+                 "depthwise3": "depthwise3_kernel", "depthwise3_grads": "depthwise3_grads"}
 # per training step at base 64 with recomputation: K1 12 forward + 9
 # recomputed + 12 dx; K3 3 forward + 3 recomputed + 3 dx
 TRAIN_PER_STEP = {"conv3d_stats": 33, "in_apply_ad": 21, "in_bwd_stats": 12,
@@ -1490,7 +1532,7 @@ def main() -> int:
     per_source = _build.build()
     print(f"build: {time.time() - t0:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in per_source.items())})",
           flush=True)
-    for name in ("conv3d_stats", "depthwise3"):
+    for name in ("conv3d_stats", "depthwise3", "depthwise3_grads"):
         for line in ptxas_report(_build.logs.get(name, "")):
             print(f"  {name} ptxas: {line}", flush=True)
 

@@ -43,17 +43,17 @@
 //     launch error) instead of hanging.
 // x and out must be 16-byte aligned (TMA); the wrapper refuses other x.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "tma5d.cuh"
+
+using namespace tma5d;
 
 namespace {
 
 constexpr int XT = 8;               // x positions a thread computes
 constexpr int MAX_THREADS = 128;
 constexpr int MAX_STAGES = 8;
-constexpr int SMEM_MAX = 232448;    // 227 KB a block can use
 
 struct Params {
   int D, C;
@@ -64,78 +64,6 @@ struct Params {
   const float* taps;                // (27, C) f32, (dz, dy, dx) order
   const float* bias;                // (C,) f32
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done;
-}
-
-__device__ __forceinline__ uint64_t globaltimer_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Waits for the phase of `parity` to complete; traps after 4 s.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const uint64_t t0 = globaltimer_ns();
-  while (!mbar_try_wait(bar, parity))
-    if (globaltimer_ns() - t0 > 4000000000ull) __trap();
-}
-
-__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, uint32_t src, int c0, int c1,
-                                             int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group "
-      "[%0, {%2, %3, %4, %5, %6}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// every bulk store this thread issued has finished reading shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// this thread's shared-memory writes, visible to the TMA store after a barrier
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 __global__ void __launch_bounds__(MAX_THREADS, 4)
     depthwise3_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -251,30 +179,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 4)
   if (tid == 0) bulk_wait();
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-int align128(int v) { return (v + 127) / 128 * 128; }
-
 }  // namespace
 
 // x, out (B,D,H,W,C) bf16 channels-last, 16-byte aligned; taps (27, C) f32
@@ -320,23 +224,11 @@ extern "C" int depthwise3_bf16(const void* x, const void* taps, const void* bias
   const long long blocks = (long long)B * p.n_seg * p.groups * p.tiles_y * p.tiles_x;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
 
-  EncodeTiled encode = encoder();
-  if (!encode) return -1;
-  const cuuint64_t dims[5] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)D,
-                              (cuuint64_t)B};
-  const cuuint64_t rowb = (cuuint64_t)C * 2;
-  const cuuint64_t strides[4] = {rowb, rowb * W, rowb * W * H, rowb * W * H * D};
-  const cuuint32_t es[5] = {1, 1, 1, 1, 1};
+  if (!encoder()) return -1;
   CUtensorMap maps[2];
-  const cuuint32_t in_box[5] = {(cuuint32_t)cg, (cuuint32_t)tx + 2, (cuuint32_t)ty + 2, 1, 1};
-  const cuuint32_t out_box[5] = {(cuuint32_t)cg, (cuuint32_t)tx, (cuuint32_t)ty, 1, 1};
-  if (encode(&maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), dims, strides,
-             in_box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return -2;
-  if (encode(&maps[1], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, out, dims, strides, out_box, es,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (!encode_volume(&maps[0], x, B, D, H, W, C, cg, tx + 2, ty + 2,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_128B) ||
+      !encode_volume(&maps[1], out, B, D, H, W, C, cg, tx, ty, CU_TENSOR_MAP_L2_PROMOTION_NONE))
     return -2;
 
   static bool configured = false;

@@ -7,10 +7,11 @@ use, never at import, with
 
 into ``build/mica_tpu_torch/<name>-<hash>.so`` at the repository root (the
 hash covers the sources and flags, so an edited source never loads a stale
-library).  ``conv3d_stats`` and ``depthwise3`` add ``-Xptxas -v``: their
-registers, shared memory and spills per kernel are kept in ``logs``.  The
-library is loaded with ``ctypes``; callers pass pointers from
-``Tensor.data_ptr()`` and the current stream as Python ints.
+library; ``csrc/*.cuh`` headers are hashed into every source's).
+``conv3d_stats``, ``depthwise3`` and ``depthwise3_grads`` add ``-Xptxas
+-v``: their registers, shared memory and spills per kernel are kept in
+``logs``.  The library is loaded with ``ctypes``; callers pass pointers
+from ``Tensor.data_ptr()`` and the current stream as Python ints.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mica_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-EXTRA_FLAGS = {"conv3d_stats": ["-Xptxas", "-v"], "depthwise3": ["-Xptxas", "-v"]}
+EXTRA_FLAGS = {"conv3d_stats": ["-Xptxas", "-v"], "depthwise3": ["-Xptxas", "-v"],
+               "depthwise3_grads": ["-Xptxas", "-v"]}
 SOURCES = ("conv3d_stats", "depthwise3", "depthwise3_grads", "stem9", "window_copy",
            "scale2")
 

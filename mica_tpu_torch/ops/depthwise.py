@@ -14,7 +14,9 @@ function, counterpart of ``depthwise_conv3_pallas_ad``) adds K7
 ``depthwise_grads`` (CUDA C++, ``csrc/depthwise3_grads.cu``), which
 replaces ``_depthwise_conv3_grads``: the 27 tap gradients and the bias
 gradient in one f32 pass over x and g, bounded by device-memory
-bandwidth.
+bandwidth.  It walks the same tiles as K3 (``k7_plan``), writes one
+partial a block and sums the partials in a fixed order, so two calls give
+the same bits.
 
 The weight is in torch grouped layout, (C, 1, 3, 3, 3).  Given CPU tensors
 a wrapper runs its plain version; given CUDA tensors it launches its
@@ -35,8 +37,7 @@ from . import _build
 launches = {"depthwise3": 0, "depthwise3_grads": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P, _P, _P, _P] + [_I] * 10 + [_P]
-_GRAD_ARGS = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+_ARGS = [_P, _P, _P, _P] + [_I] * 10 + [_P]   # K3 and K7 alike
 
 
 def depthwise_conv3_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -49,10 +50,14 @@ def depthwise_conv3_plain(x: torch.Tensor, weight: torch.Tensor,
     return y.permute(0, 2, 3, 4, 1).to(x.dtype)
 
 
-XT = 8                  # x positions a thread computes (``XT`` in the source)
-MAX_THREADS = 128
-STAGES = 4              # input planes in the shared-memory ring
+XT = 8                  # x positions a thread computes (``XT`` in both sources)
+MAX_THREADS = 128       # K3's block (``MAX_THREADS`` in depthwise3.cu)
+K7_MAX_THREADS = 256    # K7's block (``MAX_THREADS`` in depthwise3_grads.cu)
+STAGES = 4              # planes in the shared-memory ring
 SMEM_MAX = 232448       # shared memory a block can use on the H100 (227 KB)
+K3_BLOCKS_PER_SM = 4    # K3's ``__launch_bounds__`` (127 registers)
+K7_BLOCKS_PER_SM = 2    # K7's ``__launch_bounds__`` (128 registers)
+TAPS = 28               # K7's 27 tap sums and the bias sum
 
 
 def _align128(v: int) -> int:
@@ -60,12 +65,12 @@ def _align128(v: int) -> int:
 
 
 @dataclass(frozen=True)
-class K3Plan:
-    """K3's tile plan, handed to the kernel as it is.
+class _TilePlan:
+    """A tile plan of K3 or K7, handed to the kernel as it is.
 
     A block owns ``ty`` x ``tx`` (y, x) columns x ``cg`` channels of one
-    sample over ``seg`` output planes of z: ``cg / 2`` lanes (two channels
-    each) times ``ty * tx / XT`` strips of ``XT`` x positions.  Each input
+    sample over ``seg`` planes of z: ``cg / 2`` lanes (two channels each)
+    times ``ty * tx / XT`` strips of ``XT`` x positions.  Each input
     plane's (ty + 2) x (tx + 2) x cg box, zero-filled outside the volume,
     lands in a ring of ``stages`` slots; a segment reads its two
     neighbouring planes as well.  Blocks run x tile fastest, then y tile,
@@ -84,8 +89,12 @@ class K3Plan:
         return self.cg // 2
 
     @property
+    def strips(self) -> int:
+        return self.ty * (self.tx // XT)
+
+    @property
     def threads(self) -> int:
-        return self.lanes * self.ty * (self.tx // XT)
+        return self.lanes * self.strips
 
     @property
     def grid(self) -> Tuple[int, int, int, int, int]:
@@ -104,16 +113,8 @@ class K3Plan:
     def box_bytes(self) -> int:
         return (self.ty + 2) * (self.tx + 2) * self.cg * 2
 
-    @property
-    def smem(self) -> int:
-        """Dynamic shared memory: 128 B of alignment slack, the input ring,
-        two output tiles (a TMA store drains one while the next fills) and
-        the ring's barriers."""
-        return (128 + self.stages * _align128(self.box_bytes)
-                + 2 * _align128(self.ty * self.tx * self.cg * 2) + 8 * self.stages)
-
     def block(self, i: int) -> Tuple[int, int, int, int, int]:
-        """(b, z0, c0, y0, x0) of block ``i``; it writes planes z0 up to
+        """(b, z0, c0, y0, x0) of block ``i``; it covers planes z0 up to
         z0 + seg of its tile, clipped to the volume."""
         nx, ny, ng, ns, _ = self.grid
         i, bx = divmod(i, nx)
@@ -123,18 +124,58 @@ class K3Plan:
         return b, bs * self.seg, bg * self.cg, by * self.ty, bx * self.tx
 
 
-def k3_plan(shape: Sequence[int], c: int, sm_count: int = 132) -> K3Plan:
-    """The tile plan of K3 for x (B, D, H, W, C) with ``shape`` (B, D, H, W).
-    Raises ``ValueError`` for a width the kernel does not take (C % 8)."""
+class K3Plan(_TilePlan):
+    """K3's tile plan: ``seg`` output planes a block."""
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory: 128 B of alignment slack, the input ring,
+        two output tiles (a TMA store drains one while the next fills) and
+        the ring's barriers."""
+        return (128 + self.stages * _align128(self.box_bytes)
+                + 2 * _align128(self.ty * self.tx * self.cg * 2) + 8 * self.stages)
+
+
+class K7Plan(_TilePlan):
+    """K7's tile plan: a block sums ``seg`` planes of g against x planes
+    z0 - 1 .. z0 + seg; a ring slot holds the x halo box and the g box of
+    one plane.  Block ``i`` writes its (28, cg) partial at row ``row(i)``
+    of a (``rows``, 28, C) workspace, channels c0 .. c0 + cg."""
+
+    @property
+    def rows(self) -> int:
+        nx, ny, _, ns, b = self.grid
+        return nx * ny * ns * b
+
+    def row(self, i: int) -> int:
+        nx, ny, ng, _, _ = self.grid
+        tile = i % (nx * ny)
+        return (i // (nx * ny * ng)) * nx * ny + tile
+
+    @property
+    def stage_bytes(self) -> int:
+        return _align128(self.box_bytes) + _align128(self.ty * self.tx * self.cg * 2)
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory: 128 B of alignment slack, the ring (which
+        afterwards holds the strips' sums, if they take more) and its
+        barriers."""
+        ring = max(self.stages * self.stage_bytes, self.strips * TAPS * self.cg * 4)
+        return 128 + _align128(ring) + 8 * self.stages
+
+
+def _tile_plan(cls, shape: Sequence[int], c: int, max_threads: int, what: str):
+    """The plan with the squarest tile ``max_threads`` allow and z uncut."""
     b, d, h, w = (int(v) for v in shape)
     c = int(c)
     if c <= 0 or c % 8 or min(b, d, h, w) <= 0:
-        raise ValueError(f"K3 takes C % 8 == 0 and a nonempty volume, got C={c}, "
+        raise ValueError(f"{what} takes C % 8 == 0 and a nonempty volume, got C={c}, "
                          f"shape {(b, d, h, w)}")
     # the widest channel group up to 64 (32 lanes: a warp reads 128
     # contiguous bytes of one voxel)
     cg = max(g for g in range(8, 65, 8) if c % g == 0)
-    strips = max(1, MAX_THREADS // (cg // 2))
+    strips = max(1, max_threads // (cg // 2))
     ty, tx = 1, XT
     while 2 * ty * (tx // XT) <= strips:       # as square a tile as the threads allow
         if tx <= ty:
@@ -142,13 +183,36 @@ def k3_plan(shape: Sequence[int], c: int, sm_count: int = 132) -> K3Plan:
         else:
             ty *= 2
     ty, tx = min(ty, h), min(tx, -(-w // XT) * XT)
-    plan = K3Plan((b, d, h, w), c, cg, ty, tx, d, STAGES)
-    # split z into segments while the grid is short of two waves of 4
-    # blocks an SM (batch 1, a short last batch), each at least 8 planes deep
-    nx, ny, ng, _, _ = plan.grid
-    n_seg = min(-(-8 * sm_count // (nx * ny * ng * b)), max(1, d // 8))
-    seg = -(-d // n_seg)
-    return K3Plan((b, d, h, w), c, cg, ty, tx, seg, STAGES)
+    return cls((b, d, h, w), c, cg, ty, tx, d, STAGES)
+
+
+def _segmented(plan, n_seg: int):
+    """``plan`` with z cut into ``n_seg`` segments (fewer if they round
+    up), each at least 8 planes deep."""
+    d = plan.shape[1]
+    n_seg = max(1, min(n_seg, d // 8))
+    return type(plan)(plan.shape, plan.c, plan.cg, plan.ty, plan.tx, -(-d // n_seg),
+                      plan.stages)
+
+
+def k3_plan(shape: Sequence[int], c: int, sm_count: int = 132) -> K3Plan:
+    """The tile plan of K3 for x (B, D, H, W, C) with ``shape`` (B, D, H, W).
+    Raises ``ValueError`` for a width the kernel does not take (C % 8)."""
+    plan = _tile_plan(K3Plan, shape, c, MAX_THREADS, "K3")
+    # split z into segments while the grid is short of two waves (batch 1,
+    # a short last batch)
+    return _segmented(plan, -(-2 * K3_BLOCKS_PER_SM * sm_count // plan.blocks))
+
+
+def k7_plan(shape: Sequence[int], c: int, sm_count: int = 132) -> K7Plan:
+    """The tile plan of K7 for x and g (B, D, H, W, C) with ``shape`` (B, D,
+    H, W).  Raises ``ValueError`` for a width the kernel does not take (C %
+    8).  z is cut into the number of segments nearest to two waves of
+    blocks: at batch 8 x 64^3 C 64 the uncut grid is 0.97 of two waves,
+    and cutting it in two was slower in development runs on the H100
+    (each segment reads two more x planes and writes one more partial)."""
+    plan = _tile_plan(K7Plan, shape, c, K7_MAX_THREADS, "K7")
+    return _segmented(plan, round(2 * K7_BLOCKS_PER_SM * sm_count / plan.blocks))
 
 
 def depthwise_conv3(x: torch.Tensor, weight: torch.Tensor,
@@ -195,7 +259,9 @@ def depthwise_grads_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def depthwise_grads(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """K7.  x, g (B, D, H, W, C) -> (28, C) f32: the 27 tap gradients of the
-    depthwise conv and its bias gradient."""
+    depthwise conv and its bias gradient.  On the card x and g must be
+    contiguous bf16 of one shape at 16-byte-aligned addresses (TMA reads
+    them in place)."""
     if x.device.type == "cpu":
         return depthwise_grads_plain(x, g)
     b, d, h, w, c = x.shape
@@ -205,9 +271,15 @@ def depthwise_grads(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                             "of one shape")
     if c % 8:
         raise ValueError(f"depthwise_grads needs C % 8 == 0, got C={c}")
-    out = torch.zeros((28, c), dtype=torch.float32, device=x.device)
-    err = _build.function("depthwise3_grads", "depthwise3_grads_bf16", _GRAD_ARGS)(
-        x.data_ptr(), g.data_ptr(), out.data_ptr(), b, d, h, w, c,
+    if x.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError("depthwise_grads on the card reads x and g by TMA, which needs "
+                         "16-byte-aligned addresses; these are not (they are not copied)")
+    plan = k7_plan((b, d, h, w), c)
+    part = torch.empty((plan.rows, TAPS, c), dtype=torch.float32, device=x.device)
+    out = torch.empty((TAPS, c), dtype=torch.float32, device=x.device)
+    err = _build.function("depthwise3_grads", "depthwise3_grads_bf16", _ARGS)(
+        x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(),
+        b, d, h, w, c, plan.cg, plan.ty, plan.tx, plan.seg, plan.stages,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "depthwise3_grads")
     launches["depthwise3_grads"] += 1

@@ -10,7 +10,8 @@ Tolerance: 1e-2 of the largest reference value (one bf16 rounding of
 the output is 2^-9 relative), statistics 1e-4 relative (f32 sums in
 another order, with atomics).  K4 and K6 are bitwise equal to their bf16
 plain versions; K5's and K7's f32 sums stay within 1e-5 of the sum of
-the terms' magnitudes.  ``Conv3dInReluFn``'s output and gradients stay
+the terms' magnitudes, and K7's are equal to the bit from call to call.
+``Conv3dInReluFn``'s output and gradients stay
 within 1e-2 relative L2 of the same function run on the CPU.  K8 stays
 within 1e-2 of the largest reference value (f32 sums in another order, one
 bf16 rounding); K9 and K10 are exact; device candidate extraction equals
@@ -237,17 +238,44 @@ def test_in_bwd_kernels_match_plain(gen, shape):
     assert torch.equal(conv3d_in.in_bwd_apply(*args), conv3d_in.in_bwd_apply_plain(*args))
 
 
-@pytest.mark.parametrize("shape", [(2, 7, 6, 9, 64), (1, 16, 16, 16, 256), (2, 3, 4, 5, 8)])
+@pytest.mark.parametrize("shape", [
+    (2, 7, 6, 9, 64), (1, 16, 16, 16, 256), (2, 3, 4, 5, 8),
+    (1, 64, 64, 64, 64),              # batch 1: the grid is cut into z segments
+    (3, 5, 7, 9, 16),                 # H, W not multiples of the tile; C 16
+    (1, 3, 1, 130, 24),               # C 24: a 24-channel group; a single row
+    (2, 1, 13, 21, 64),               # D = 1: both z neighbours outside
+    (3, 16, 16, 16, 128),             # a short batch of 16^3 windows
+])
 def test_depthwise_grads_matches_plain(gen, shape):
+    """K7 within 1e-5 of the terms' magnitudes, and a second call on the
+    same inputs equal to the bit (the partials are summed in a fixed
+    order, no atomics)."""
     from mica_tpu_torch.ops import depthwise
 
     x = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
     g = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+    before = depthwise.launches["depthwise3_grads"]
     got = depthwise.depthwise_grads(x, g)
+    assert depthwise.launches["depthwise3_grads"] == before + 1
     want = depthwise.depthwise_grads_plain(x, g)
     mag = depthwise.depthwise_grads_plain(x.abs(), g.abs())
     assert got.shape == (28, shape[-1])
     assert ((got - want).abs() <= 1e-5 * mag + 1e-4).all()
+    assert torch.equal(depthwise.depthwise_grads(x, g), got)
+
+
+def test_depthwise_grads_refuses_an_unaligned_operand(gen):
+    from mica_tpu_torch.ops import depthwise
+
+    flat = torch.randn(2 * 4 * 4 * 4 * 8 + 4, device="cuda", generator=gen).to(torch.bfloat16)
+    x = flat[4:].view(2, 4, 4, 4, 8)          # contiguous, 8 bytes past an aligned start
+    assert x.is_contiguous() and x.data_ptr() % 16
+    ok = torch.randn(2, 4, 4, 4, 8, device="cuda", generator=gen).to(torch.bfloat16)
+    for a, b in ((x, ok), (ok, x)):
+        with pytest.raises(ValueError, match="16-byte"):
+            depthwise.depthwise_grads(a, b)
+    with pytest.raises(TypeError):
+        depthwise.depthwise_grads(ok.float(), ok.float())
 
 
 @pytest.mark.parametrize("cis,co", [([64], 32), ([64, 32], 32), ([64, 32, 32], 64),
