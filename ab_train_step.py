@@ -6,12 +6,16 @@
 Runs PARENT, CHANGE, CHANGE, PARENT (CHANGE defaults to this checkout),
 each in a process of its own that imports ``chip_smoke`` and
 ``mica_tpu_torch`` from that checkout and builds its kernels there.  A run
-is ``chip_smoke.py``'s training phase (``training_path``: batch 8 x 64^3
-at base 64, bf16, 2 warm-up steps, 5 timed, 8 on a fixed batch), then 3
-more rounds of 5 steps, each timed on the host clock up to a synchronize,
-then its profile of one step (``profile_train_step``), device time by
-kernel.  The card's name and power limit come first: compare checkouts
-only within one call.
+first times K4, K5 and K6 alone at each width of a training step (8 x
+64^3 bf16) and K8 at 8 x 64^3 and 2 x 33 x 35 x 37 (C 128, the weight
+packed by the checkout's own ``MultiScaleInput``), each the mean of 20
+launches after a warm-up (``chip_smoke.cuda_ms``); then
+``chip_smoke.py``'s training phase (``training_path``: batch 8 x 64^3 at
+base 64, bf16, 2 warm-up steps, 5 timed, 8 on a fixed batch), then 3 more
+rounds of 5 steps, each timed on the host clock up to a synchronize, then
+its profile of one step (``profile_train_step``), device time by kernel.
+The card's name and power limit come first: compare checkouts only within
+one call.
 """
 
 from __future__ import annotations
@@ -25,6 +29,37 @@ from pathlib import Path
 ROUNDS, STEPS = 3, 5
 
 
+def kernel_times(torch, chip_smoke) -> None:
+    """K4-K6 and K8 alone, ms per launch, through the checkout's wrappers."""
+    from mica_tpu_torch.models.mica import MultiScaleInput
+    from mica_tpu_torch.ops import conv3d_in, stem
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    for c in chip_smoke.K56_PER_STEP:
+        shape = (chip_smoke.BATCH,) + (chip_smoke.WIN,) * 3 + (c,)
+        xh = torch.randn(*shape, device="cuda", generator=g).to(bf)
+        dy = torch.randn(*shape, device="cuda", generator=g).to(bf)
+        m = torch.rand(shape[0], c, device="cuda", generator=g) * 0.2 - 0.1
+        s = torch.rand(shape[0], c, device="cuda", generator=g) + 0.5
+        buf = dy.clone()
+        k4 = chip_smoke.cuda_ms(lambda: conv3d_in.in_apply_ad(buf, m, s), reps=20)
+        k5 = chip_smoke.cuda_ms(lambda: conv3d_in.in_bwd_stats(xh, dy), reps=20)
+        k6 = chip_smoke.cuda_ms(lambda: conv3d_in.in_bwd_apply(xh, dy, m, m, s), reps=20)
+        print(f"  C={c}: K4 {k4:.4f} ms, K5 {k5:.4f} ms, K6 {k6:.4f} ms", flush=True)
+        del xh, dy, buf
+    torch.manual_seed(0)
+    ms = MultiScaleInput(chip_smoke.BASE).cuda()
+    with torch.no_grad():
+        packed = ms._packed_stem_weight(bf)
+        bias = torch.cat([conv.bias for conv in ms.exp_convs]).float()
+        for shape in ((chip_smoke.BATCH,) + (chip_smoke.WIN,) * 3, (2, 33, 35, 37)):
+            x = torch.randn(*shape, device="cuda", generator=g).to(bf)
+            k8 = chip_smoke.cuda_ms(lambda: stem.stem_conv(x, packed, bias), reps=20)
+            print(f"  {'x'.join(map(str, shape))}: K8 {k8:.4f} ms", flush=True)
+    torch.cuda.empty_cache()
+
+
 def one(root: str) -> None:
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
@@ -36,6 +71,7 @@ def one(root: str) -> None:
 
     print(f"checkout {root} ({chip_smoke.__file__})", flush=True)
     _build.build()
+    kernel_times(torch, chip_smoke)
     detail = {}
     _, trainer, state, batch = chip_smoke.training_path(torch, argparse.Namespace(seed=0),
                                                         detail)

@@ -7,8 +7,8 @@ Phases, each printing what it found; any failure ends the run non-zero:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build the CUDA kernels from ``mica_tpu_torch/csrc`` (one ``nvcc`` per
-     source, all at once), then K1's, K3's and K7's ``-Xptxas -v`` report
-     (registers, barriers, spills per kernel);
+     source, all at once), then K1's, K3's, K7's and K8's ``-Xptxas -v``
+     report (registers, barriers, spills per kernel);
   3. hold every kernel against its plain PyTorch version at the shapes of
      its path (batch 8, 64^3 windows, the widths of MICA at base 64; for
      K1 also every dx geometry of a training step; K8 also at an odd
@@ -21,7 +21,13 @@ Phases, each printing what it found; any failure ends the run non-zero:
      form, on odd shapes too, with its share of the bound and its tile plan;
      K7 (20 launches a site) on K3's odd shapes too, with its share of the
      bound (>= 50 % at each training site) and its tile plan, and two calls
-     on the same inputs must agree to the bit;
+     on the same inputs must agree to the bit; K4-K6 over 20 launches a
+     site, K5 with its plan, registers and spills, to the bit from call to
+     call and at >= 70 % of its bound at each training width (its 20
+     launches enqueued one by one; the same replayed from a CUDA graph
+     printed beside them); K8 over 20
+     launches with its plan, its share of the bound and the MMAs it issues
+     over the real taps' (<= 1.2x at the main path's shape);
   4. the prediction path: ``predict_map`` on a synthetic map written to an
      MRC, with a docked model for the AF3 encoding, random weights from
      ``--seed``, bf16, batch 8, core 48 / halo 8, twice: the process's
@@ -107,6 +113,24 @@ def cuda_ms(fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """ms per call of ``reps`` calls captured in one CUDA graph and replayed:
+    the device's time for back-to-back launches, without the host's time to
+    enqueue them (a training step queues them behind its other work)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=3) / reps
 
 
 def bound_ms(flops: float, nbytes: float, peak_flops: float):
@@ -410,7 +434,7 @@ def check_k4(torch, conv3d_in, g, detail):
         fail_if(not err <= tol, f"K4 C={c}: err {err} > {tol}")
         bnd, by = bound_ms(3.0 * x.numel(), 6.0 * x.numel() + 8.0 * BATCH * c, PEAK_F32)
         buf = x.clone()
-        ms = cuda_ms(lambda: conv3d_in.in_apply_ad(buf, mean, scale), reps=5)
+        ms = cuda_ms(lambda: conv3d_in.in_apply_ad(buf, mean, scale), reps=20)
         plain = cuda_ms(lambda: conv3d_in.in_apply_ad_plain(x, mean, scale))
         m16 = mean.to(torch.bfloat16)[:, None, None, None]
         s16 = scale.to(torch.bfloat16)[:, None, None, None]
@@ -427,22 +451,30 @@ def check_k4(torch, conv3d_in, g, detail):
 
 
 def check_k5_k6(torch, conv3d_in, g, detail):
+    from mica_tpu_torch.ops import _build
+
     rows5, rows6 = [], []
     for c in K56_PER_STEP:
         xh = torch.randn(BATCH, WIN, WIN, WIN, c, device="cuda", generator=g).to(torch.bfloat16)
         dy = torch.randn(BATCH, WIN, WIN, WIN, c, device="cuda", generator=g).to(torch.bfloat16)
         n = WIN ** 3
         # K5: f32 sums against the plain version's; tolerance 1e-5 of the
-        # sum of the terms' magnitudes (f32 sums in another order)
+        # sum of the terms' magnitudes (f32 sums in another order); two
+        # calls equal to the bit (fixed chunks summed in a fixed order)
         st = conv3d_in.in_bwd_stats(xh, dy)
+        again = conv3d_in.in_bwd_stats(xh, dy)
         torch.cuda.synchronize()
         want = conv3d_in.in_bwd_stats_plain(xh, dy)
         mag = conv3d_in.in_bwd_stats_plain(xh.abs(), dy.abs())
         err5 = (st - want).abs().max().item()
         excess = ((st - want).abs() - 1e-5 * mag).max().item()
         fail_if(not excess <= 1e-3, f"K5 C={c}: err {err5} beyond 1e-5 of the magnitudes")
+        fail_if(not torch.equal(st, again), f"K5 C={c}: two calls differ (not deterministic)")
         bnd, by = bound_ms(4.0 * xh.numel(), 4.0 * xh.numel() + 8.0 * BATCH * c, PEAK_F32)
-        ms = cuda_ms(lambda: conv3d_in.in_bwd_stats(xh, dy), reps=5)
+        # timed as every kernel is, 20 calls enqueued one by one; beside it
+        # the same 20 calls replayed from a CUDA graph, without the host
+        ms = cuda_ms(lambda: conv3d_in.in_bwd_stats(xh, dy), reps=20)
+        graph = graph_ms(lambda: conv3d_in.in_bwd_stats(xh, dy), reps=20)
         plain = cuda_ms(lambda: conv3d_in.in_bwd_stats_plain(xh, dy))
 
         def lib_sums():
@@ -451,11 +483,19 @@ def check_k5_k6(torch, conv3d_in, g, detail):
                                 (gg * xh).sum(dim=(1, 2, 3), dtype=torch.float32)], 1)
 
         lib = cuda_ms(lib_sums)
-        rows5.append(dict(site=c, max_abs_err=err5, ms=ms, plain_ms=plain, library_ms=lib,
-                          bound_ms=bnd, bound_by=by))
-        print(f"K5 C={c}: max_abs_err {err5:.3e} (tol 1e-5 of sum |g|, sum |g x^|); time "
-              f"{ms:.3f} ms, plain {plain:.3f} ms, torch.sum of the products {lib:.3f} ms, "
-              f"bound {bnd:.3f} ms ({by})", flush=True)
+        rows5.append(dict(site=c, max_abs_err=err5, ms=ms, graph_ms=graph, plain_ms=plain,
+                          library_ms=lib, bound_ms=bnd, bound_by=by, bound_share=bnd / ms))
+        p = conv3d_in.k5_plan(xh.shape, _build.sm_count(xh.device))
+        main, summed = next(v[:2] for k, v in conv3d_in.k5_kernels.items() if k[0] == p)
+        regs = (f"in_bwd_stats {main.n_regs} registers, {main.n_spills} spills, "
+                f"in_bwd_stats_sum {summed.n_regs} registers, {summed.n_spills} spills")
+        print(f"K5 C={c}: max_abs_err {err5:.3e} (tol 1e-5 of sum |g|, sum |g x^|), bitwise "
+              f"equal from call to call; time {ms:.4f} ms ({100 * bnd / ms:.1f} % of its bound; "
+              f"20 launches enqueued one by one, {graph:.4f} ms replayed from a CUDA graph), "
+              f"plain {plain:.3f} ms, torch.sum of the products {lib:.3f} ms, bound {bnd:.4f} ms "
+              f"({by}); plan tile {p.block_s} x {p.block_c}, chunk {p.chunk} voxels, grid "
+              f"{p.grid} = {p.programs} programs, {p.n_chunks} x 2 x {c} f32 partials a "
+              f"sample; {regs}", flush=True)
 
         m1, m2 = st[:, 0] / n, st[:, 1] / n
         scale = _bf16_table(torch, g, c, 0.5, 1.5)
@@ -468,7 +508,7 @@ def check_k5_k6(torch, conv3d_in, g, detail):
         tol = 2e-2 * want6.abs().max().item()
         fail_if(not err6 <= tol, f"K6 C={c}: err {err6} > {tol}")
         bnd, by = bound_ms(5.0 * xh.numel(), 6.0 * xh.numel() + 12.0 * BATCH * c, PEAK_F32)
-        ms = cuda_ms(lambda: conv3d_in.in_bwd_apply(xh, dy, m1, m2, scale), reps=5)
+        ms = cuda_ms(lambda: conv3d_in.in_bwd_apply(xh, dy, m1, m2, scale), reps=20)
         plain = cuda_ms(lambda: conv3d_in.in_bwd_apply_plain(xh, dy, m1, m2, scale))
         e = lambda t: t.to(torch.bfloat16)[:, None, None, None]  # noqa: E731
         lib = cuda_ms(lambda: e(scale) * (torch.where(xh > 0, dy, 0) - e(m1) - xh * e(m2)))
@@ -479,6 +519,13 @@ def check_k5_k6(torch, conv3d_in, g, detail):
               f"{plain:.3f} ms, eager bf16 {lib:.3f} ms, bound {bnd:.3f} ms ({by})", flush=True)
         del xh, dy, dc, want6
         torch.cuda.empty_cache()
+    step = sum(r["ms"] * K56_PER_STEP[r["site"]] for r in rows5)
+    bnd = sum(r["bound_ms"] * K56_PER_STEP[r["site"]] for r in rows5)
+    print(f"K5, a training step's {sum(K56_PER_STEP.values())} launches: {step:.4f} ms against "
+          f"a bound of {bnd:.4f} ms ({100 * bnd / step:.1f} %)", flush=True)
+    for r in rows5:
+        fail_if(r["bound_share"] < 0.7, f"K5 C={r['site']}: {100 * r['bound_share']:.1f} % "
+                "of its bound, short of 70 %")
     detail["in_bwd_stats"], detail["in_bwd_apply"] = rows5, rows6
     return rows5, rows6
 
@@ -558,19 +605,19 @@ def check_k7(torch, depthwise, g, detail):
 def check_k8(torch, F, g, detail):
     """K8 at the main path's shape and at an odd size against the plain 9^3
     conv in f32 from the same bf16 inputs.  Tolerance 1e-2 of the largest
-    reference value: 729 f32 products summed in another order, then one bf16
-    rounding of the output (2^-9 relative)."""
+    reference value: up to 729 f32 products summed in another order, then
+    one bf16 rounding of the output (2^-9 relative)."""
     from mica_tpu_torch.models.mica import _fold_kernel_s2d, _fold_s2d, _unfold_s2d
-    from mica_tpu_torch.ops import stem
+    from mica_tpu_torch.ops import _build, stem
 
     c = 2 * BASE
     rows = []
     for shape in ((BATCH, WIN, WIN, WIN), (2, 33, 35, 37)):
         x = torch.randn(*shape, device="cuda", generator=g).to(torch.bfloat16)
         ws = [torch.randn(c // 4, 1, k, k, k, device="cuda", generator=g) * k ** -1.5
-              for k in (3, 5, 7, 9)]
+              for k in stem.KS]
         bias = torch.randn(c, device="cuda", generator=g) * 0.1
-        packed = stem.pack_weight(stem.combine_weights(ws), torch.bfloat16)
+        packed = stem.pack_weight(ws, torch.bfloat16)
         want = stem.stem_conv_plain(x.float(), packed.float(), bias)
         got = stem.stem_conv(x, packed, bias)
         torch.cuda.synchronize()
@@ -580,20 +627,23 @@ def check_k8(torch, F, g, detail):
         fail_if(not err <= tol, f"K8 {site}: err {err} > {tol}")
         del want, got
         # the function's operations: each of the four c/4-channel convs
-        # has k^3 taps a voxel (39168 MACs at C 128).  The kernel itself
-        # multiplies 832 taps for every channel, zeros included: that is a
-        # loss of the design, not work the bound counts
+        # has k^3 taps a voxel (39168 MACs at C 128); the kernel issues
+        # K_TOTAL padded taps for every voxel of every tile
+        plan = stem.k8_plan(shape, c, _build.sm_count(x.device))
         m = x.numel()
         flops = 2.0 * m * sum(w.shape[0] * w.shape[-1] ** 3 for w in ws)
-        mma_flops = 2.0 * m * stem.K_PACKED * c
+        mma_flops = flops * plan.mma_ratio
+        # at the main path's shape (whole tiles); odd sizes add the tiles' overhang
+        fail_if(shape[1:] == (WIN,) * 3 and plan.mma_ratio > 1.2,
+                f"K8 {site}: {plan.mma_ratio:.3f}x the real taps' MMAs")
         nbytes = 2.0 * m + 2.0 * m * c + 2.0 * packed.numel() + 4.0 * c
         bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
-        ms = cuda_ms(lambda: stem.stem_conv(x, packed, bias), reps=5)
+        ms = cuda_ms(lambda: stem.stem_conv(x, packed, bias), reps=20)
         plain = cuda_ms(lambda: stem.stem_conv_plain(x, packed, bias), reps=1)
         # the library conv this kernel took the place of, in TF32 as the
         # model ran it: the space-to-depth form at even sizes, else the 9^3
         xin = x.float()[:, None]
-        w9 = stem.unpack_weight(packed).float()
+        w9 = stem.combine_weights(stem.unpack_weight(packed, c)).float()
         if all(v % 2 == 0 for v in shape[1:]):
             wf = _fold_kernel_s2d(w9)
             conv = lambda: _unfold_s2d(F.conv3d(_fold_s2d(xin), wf, padding=2))  # noqa: E731
@@ -605,12 +655,17 @@ def check_k8(torch, F, g, detail):
         lib = cuda_ms(lambda: (conv().permute(0, 2, 3, 4, 1) + bias).to(torch.bfloat16))
         torch.backends.cudnn.allow_tf32 = False
         rows.append(dict(site=site, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                         bound_ms=bnd, bound_by=by, tflops=flops / ms / 1e9,
-                         mma_tflops=mma_flops / ms / 1e9))
-        print(f"K8 {site} -> C={c}: max_abs_err {err:.3e} (tol {tol:.3e}); time {ms:.3f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s of the function's {flops:.4e} operations, "
-              f"{mma_flops / ms / 1e9:.1f} TFLOP/s issued with the zero taps), plain {plain:.3f} "
-              f"ms, {lib_name} {lib:.3f} ms, bound {bnd:.3f} ms ({by})", flush=True)
+                         bound_ms=bnd, bound_by=by, bound_share=bnd / ms,
+                         tflops=flops / ms / 1e9, mma_tflops=mma_flops / ms / 1e9,
+                         mma_ratio=plan.mma_ratio))
+        print(f"K8 {site} -> C={c}: max_abs_err {err:.3e} (tol {tol:.3e}); time {ms:.4f} ms "
+              f"({100 * bnd / ms:.1f} % of its bound; {flops / ms / 1e9:.1f} TFLOP/s of the "
+              f"function's {flops:.4e} operations, {mma_flops / ms / 1e9:.1f} issued, "
+              f"{plan.mma_ratio:.3f}x the real taps' MMAs), plain {plain:.3f} ms, {lib_name} "
+              f"{lib:.3f} ms, bound {bnd:.4f} ms ({by}); plan tile "
+              f"{'x'.join(map(str, stem.TILE))}, NG {plan.ng} x {plan.passes} passes, "
+              f"{plan.n_tiles} tiles on {plan.ctas} CTAs, 2 halo slots, {plan.smem} B shared",
+              flush=True)
         del x, xin
         torch.cuda.empty_cache()
     detail["stem9"] = rows
@@ -1017,7 +1072,7 @@ def profile_forward(torch, model, seed, detail):
 
 
 TRAIN_KERNELS = {"conv3d_stats": "conv3d_stats_kernel", "in_apply_ad": "in_apply_ad_kernel",
-                 "in_bwd_stats": "in_bwd_stats_kernel", "in_bwd_apply": "in_bwd_apply_kernel",
+                 "in_bwd_stats": "in_bwd_stats", "in_bwd_apply": "in_bwd_apply_kernel",
                  "depthwise3": "depthwise3_kernel", "depthwise3_grads": "depthwise3_grads"}
 # per training step at base 64 with recomputation: K1 12 forward + 9
 # recomputed + 12 dx; K3 3 forward + 3 recomputed + 3 dx
@@ -1532,9 +1587,12 @@ def main() -> int:
     per_source = _build.build()
     print(f"build: {time.time() - t0:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in per_source.items())})",
           flush=True)
-    for name in ("conv3d_stats", "depthwise3", "depthwise3_grads"):
+    for name in ("conv3d_stats", "depthwise3", "depthwise3_grads", "stem9"):
         for line in ptxas_report(_build.logs.get(name, "")):
             print(f"  {name} ptxas: {line}", flush=True)
+    for line in _build.logs.get("stem9", "").splitlines():
+        if "wgmma" in line:
+            print(f"  stem9 ptxas: {line.strip()}", flush=True)
 
     detail = {"device": smi, "build_s": per_source}
     out = Path(args.out)

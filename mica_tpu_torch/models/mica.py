@@ -274,17 +274,17 @@ class MultiScaleInput(nn.Module):
         self._stem_cache = None
 
     def _packed_stem_weight(self, dt: torch.dtype) -> torch.Tensor:
-        """The four kernels as K8's packed (C, 832) weight in ``dt``, derived
+        """The four kernels as K8's packed weight in ``dt``, derived
         again only when a kernel was written to, replaced or moved (its
         version counter, storage or device changed).  Where autograd records
         the kernels it is derived anew, attached to them, and not kept."""
         ws = [conv.weight for conv in self.exp_convs]
         if torch.is_grad_enabled() and any(w.requires_grad for w in ws):
-            return stem_ops.pack_weight(stem_ops.combine_weights(ws), dt)
+            return stem_ops.pack_weight(ws, dt)
         key = (dt,) + tuple((w._version, w.data_ptr(), w.device) for w in ws)
         if self._stem_cache is None or self._stem_cache[0] != key:
             with torch.no_grad():
-                self._stem_cache = (key, stem_ops.pack_weight(stem_ops.combine_weights(ws), dt))
+                self._stem_cache = (key, stem_ops.pack_weight(ws, dt))
         return self._stem_cache[1]
 
     def stem(self, x: torch.Tensor, train: bool = False, kernels: bool = True) -> torch.Tensor:

@@ -8,10 +8,12 @@ use, never at import, with
 into ``build/mica_tpu_torch/<name>-<hash>.so`` at the repository root (the
 hash covers the sources and flags, so an edited source never loads a stale
 library; ``csrc/*.cuh`` headers are hashed into every source's).
-``conv3d_stats``, ``depthwise3`` and ``depthwise3_grads`` add ``-Xptxas
--v``: their registers, shared memory and spills per kernel are kept in
-``logs``.  The library is loaded with ``ctypes``; callers pass pointers
+``conv3d_stats``, ``depthwise3``, ``depthwise3_grads`` and ``stem9`` add
+``-Xptxas -v``: their registers, shared memory and spills per kernel are
+kept in ``logs``.  The library is loaded with ``ctypes``; callers pass pointers
 from ``Tensor.data_ptr()`` and the current stream as Python ints.
+The device facts the kernels' plans share (``SMEM_MAX``, ``sm_count``)
+live here too.
 """
 
 from __future__ import annotations
@@ -25,14 +27,18 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mica_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 EXTRA_FLAGS = {"conv3d_stats": ["-Xptxas", "-v"], "depthwise3": ["-Xptxas", "-v"],
-               "depthwise3_grads": ["-Xptxas", "-v"]}
+               "depthwise3_grads": ["-Xptxas", "-v"], "stem9": ["-Xptxas", "-v"]}
 SOURCES = ("conv3d_stats", "depthwise3", "depthwise3_grads", "stem9", "window_copy",
            "scale2")
+
+SMEM_MAX = 232448   # shared memory a block can use on the H100 (227 KB)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 logs: Dict[str, str] = {}   # compiler output of each source built by this process
@@ -114,3 +120,14 @@ def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+_sm_counts: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA device, read once."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]

@@ -25,7 +25,8 @@ custom VJP ``wino_conv3d_in_relu_pallas_ad``:
   * K4 ``in_apply_ad``: y = relu(x̂) in place and x̂ = (c - m)·s
     (replaces ``_in_apply_ad_T``);
   * K5 ``in_bwd_stats``: per-(b, c) sums of g = dy·[x̂ > 0] and g·x̂
-    (replaces ``_in_bwd_stats_T``);
+    (replaces ``_in_bwd_stats_T``), partials of voxel chunks summed in a
+    fixed order (``k5_plan``);
   * K6 ``in_bwd_apply``: dc = s·(g − m1 − x̂·m2) (replaces
     ``_in_bwd_apply_T``).
 
@@ -37,6 +38,7 @@ or raises.  ``launches`` counts kernel launches per wrapper.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass, replace
 from typing import Optional, Sequence, Tuple
 
@@ -44,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._build import SMEM_MAX
 
 launches = {"conv3d_stats": 0, "in_apply": 0, "in_apply_ad": 0, "in_bwd_stats": 0,
             "in_bwd_apply": 0}
@@ -94,7 +97,6 @@ _CONV_ARGS = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_I]
 # H100.
 K1_CONFIGS = ((256, 1), (192, 1), (128, 2), (96, 2), (64, 2), (32, 2))
 K1_MT = dict(K1_CONFIGS)
-SMEM_MAX = 232448           # shared memory a block can use on the H100 (227 KB)
 MAX_STAGES = 8
 
 
@@ -240,16 +242,6 @@ def k1_dx_sites(base: int = 64):
     return sites
 
 
-_sm_counts: dict = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sm_counts[idx]
-
-
 def pack_weight(weight: torch.Tensor) -> torch.Tensor:
     """(Co, Ci, 3, 3, 3) -> (Co, 27 * Ci) bf16, [co][tap][ci]: K1's B operand,
     K-major as wgmma reads it."""
@@ -286,7 +278,7 @@ def conv3d(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
     if tuple(weight.shape[1:]) != (sum(cis), 3, 3, 3) or co % 32:
         raise ValueError(f"weight shape {tuple(weight.shape)} for Ci {sum(cis)}; "
                          "Co must be a multiple of 32")
-    plan = k1_plan(cis, co, (b, d, h, w), _sm_count(parts[0].device))
+    plan = k1_plan(cis, co, (b, d, h, w), _build.sm_count(parts[0].device))
     wp = pack_weight(weight.to(parts[0].device))
     bp = None
     if bias is not None:
@@ -510,15 +502,17 @@ def _ad_triton():
                      mask=mask)
 
         @triton.jit
-        def in_bwd_stats_kernel(xh_ptr, dy_ptr, st_ptr, S, C, CHUNK,
+        def in_bwd_stats_kernel(xh_ptr, dy_ptr, buf_ptr, S, C, CHUNK, N_CHUNKS,
                                 BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
             pid_s = tl.program_id(0)
             pid_c = tl.program_id(1)
             b = tl.program_id(2)
             cols = pid_c * BLOCK_C + tl.arange(0, BLOCK_C)
             cmask = cols < C
-            acc_g = tl.zeros((BLOCK_C,), dtype=tl.float32)
-            acc_gx = tl.zeros((BLOCK_C,), dtype=tl.float32)
+            # tile-shaped sums: each tile is added elementwise, and the rows
+            # are reduced once, after the loop
+            acc_g = tl.zeros((BLOCK_S, BLOCK_C), dtype=tl.float32)
+            acc_gx = tl.zeros((BLOCK_S, BLOCK_C), dtype=tl.float32)
             start = pid_s * CHUNK
             for s0 in range(start, tl.minimum(start + CHUNK, S), BLOCK_S):
                 rows = s0 + tl.arange(0, BLOCK_S)
@@ -527,11 +521,32 @@ def _ad_triton():
                 xh = tl.load(xh_ptr + offs, mask=mask, other=0.0).to(tl.float32)
                 dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
                 g = tl.where(xh > 0, dy, 0.0)
-                acc_g += tl.sum(g, axis=0)
-                acc_gx += tl.sum(g * xh, axis=0)
-            # one atomic per (program, b, c): the partial sums of CHUNK voxels
-            tl.atomic_add(st_ptr + b * 2 * C + cols, acc_g, mask=cmask)
-            tl.atomic_add(st_ptr + b * 2 * C + C + cols, acc_gx, mask=cmask)
+                acc_g += g
+                acc_gx += g * xh
+            # this chunk's two partial rows: (B + b·N_CHUNKS + chunk, :, :) of
+            # the (B·(1 + N_CHUNKS), 2, C) buffer, after the B rows of sums
+            row = (tl.num_programs(2) + b * N_CHUNKS + pid_s) * 2 * C
+            tl.store(buf_ptr + row + cols, tl.sum(acc_g, axis=0), mask=cmask)
+            tl.store(buf_ptr + row + C + cols, tl.sum(acc_gx, axis=0), mask=cmask)
+
+        @triton.jit
+        def in_bwd_stats_sum_kernel(buf_ptr, C, N_CHUNKS,
+                                    BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
+            # buf[b, k, c] = the sum over the chunks of the partials, in a
+            # fixed order: BLOCK_R rows at a time, then across them
+            pid_c = tl.program_id(0)
+            k = tl.program_id(1)
+            b = tl.program_id(2)
+            first = tl.num_programs(2) + b * N_CHUNKS
+            cols = pid_c * BLOCK_C + tl.arange(0, BLOCK_C)
+            cmask = cols < C
+            acc = tl.zeros((BLOCK_R, BLOCK_C), dtype=tl.float32)
+            for r0 in range(0, N_CHUNKS, BLOCK_R):
+                r = r0 + tl.arange(0, BLOCK_R)
+                offs = ((first + r) * 2 + k)[:, None] * C + cols[None, :]
+                acc += tl.load(buf_ptr + offs, mask=(r < N_CHUNKS)[:, None] & cmask[None, :],
+                               other=0.0)
+            tl.store(buf_ptr + (b * 2 + k) * C + cols, tl.sum(acc, axis=0), mask=cmask)
 
         @triton.jit
         def in_bwd_apply_kernel(xh_ptr, dy_ptr, dc_ptr, m1_ptr, m2_ptr, s_ptr, S, C,
@@ -559,7 +574,8 @@ def _ad_triton():
             t3 = round_bf16(t1 - t2)
             tl.store(dc_ptr + offs, (s[None, :] * t3).to(tl.bfloat16), mask=mask)
 
-        _ad_kernels = (triton, in_apply_ad_kernel, in_bwd_stats_kernel, in_bwd_apply_kernel)
+        _ad_kernels = (triton, in_apply_ad_kernel, (in_bwd_stats_kernel, in_bwd_stats_sum_kernel),
+                       in_bwd_apply_kernel)
     return _ad_kernels
 
 
@@ -582,27 +598,118 @@ def in_apply_ad(c: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor):
     return c, xh
 
 
+# K5 is a reduction bounded by device-memory bandwidth alone (4 bytes read
+# an element, a few f32 flops).  A program sums a chunk of voxels for one
+# block of up to 128 channels (all of them up to C = 128, so its loads are
+# whole rows) into tile-shaped f32 accumulators, reduces across rows once at
+# the end, and writes its two partial rows to a buffer; a second kernel
+# sums the chunks in a fixed order into the buffer's first rows.  No atomics and no zero fill: two calls
+# give the same bits.
+K5_TILE = 4096            # elements of a (BLOCK_S, BLOCK_C) tile: 16 a thread
+K5_WARPS = 8
+K5_PROGRAMS_PER_SM = 8    # two waves of four resident 8-warp programs
+K5_SUM_ROWS = 32          # chunks a step of the sum kernel
+
+
+@dataclass(frozen=True)
+class K5Plan:
+    """K5's plan for x̂, dy of ``shape`` (B, D, H, W, C): programs of
+    ``block_s`` voxels x ``block_c`` channels a tile, each summing ``chunk``
+    voxels (a multiple of ``block_s``) of one sample and channel block."""
+
+    shape: Tuple[int, int, int, int, int]
+    block_s: int
+    block_c: int
+    chunk: int
+
+    @property
+    def voxels(self) -> int:
+        _, d, h, w, _ = self.shape
+        return d * h * w
+
+    @property
+    def n_c(self) -> int:
+        return -(-self.shape[4] // self.block_c)
+
+    @property
+    def n_chunks(self) -> int:
+        return -(-self.voxels // self.chunk)
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        """(chunks, channel blocks, samples) of the kernel that sums the
+        voxels."""
+        return self.n_chunks, self.n_c, self.shape[0]
+
+    @property
+    def programs(self) -> int:
+        return self.n_chunks * self.n_c * self.shape[0]
+
+    @property
+    def buffer(self) -> Tuple[int, int, int]:
+        """The f32 buffer of both kernels, (B·(1 + chunks), 2, C): the sums
+        of sample b in row b, the partials of its chunk i in row
+        B + b·chunks + i."""
+        return self.shape[0] * (1 + self.n_chunks), 2, self.shape[4]
+
+    @property
+    def sum_grid(self) -> Tuple[int, int, int]:
+        """(channel blocks, 2, samples) of the kernel that sums the chunks."""
+        return self.n_c, 2, self.shape[0]
+
+    def rows(self, i: int) -> Tuple[int, int]:
+        """The voxels [start, stop) that chunk ``i`` sums."""
+        return i * self.chunk, min((i + 1) * self.chunk, self.voxels)
+
+
+@functools.lru_cache(maxsize=64)
+def k5_plan(shape: Sequence[int], sm_count: int = 132) -> K5Plan:
+    """K5's plan for (B, D, H, W, C): about ``K5_PROGRAMS_PER_SM`` programs
+    an SM in all, whatever the batch and width."""
+    b, d, h, w, c = (int(v) for v in shape)
+    block_c = min(128, _pow2_at_least(c))
+    block_s = K5_TILE // block_c
+    tiles = -(-(d * h * w) // block_s)
+    per = max(1, K5_PROGRAMS_PER_SM * sm_count // (b * -(-c // block_c)))
+    n = min(tiles, per)
+    return K5Plan((b, d, h, w, c), block_s, block_c, -(-tiles // n) * block_s)
+
+
+# (plan, device, x̂ and dy 16-byte aligned) -> K5's two compiled kernels and
+# their launchers.  Triton specialises a kernel on its integer arguments (all
+# fixed by the plan) and on its pointers' alignment, so one pair serves a key.
+k5_kernels: dict = {}
+
+
 def in_bwd_stats(xh: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """K5, replaces ``_in_bwd_stats_T``.  Per-(b, c) sums of g = dy·[x̂>0]
-    and g·x̂ over the voxels: (B, 2, C) f32.  Each program sums a chunk of
-    voxels in registers and adds it with one atomic per (b, c)."""
+    and g·x̂ over the voxels: (B, 2, C) f32, in a fixed order (``k5_plan``)."""
     if xh.device.type == "cpu":
         return in_bwd_stats_plain(xh, dy)
     _check_bf16_5d("in_bwd_stats", xh, dy)
-    b, ch = xh.shape[0], xh.shape[4]
-    s = xh.shape[1] * xh.shape[2] * xh.shape[3]
-    triton, _, kernel, _ = _ad_triton()
-    block_s, block_c = _tile(ch, triton)
-    n_c = triton.cdiv(ch, block_c)
-    # ~2048 programs in all: enough to fill the card, few atomics
-    tiles = triton.cdiv(s, block_s)
-    n_s = max(1, min(tiles, 2048 // (b * n_c)))
-    chunk = triton.cdiv(tiles, n_s) * block_s
-    stats = torch.zeros((b, 2, ch), dtype=torch.float32, device=xh.device)
-    kernel[(triton.cdiv(s, chunk), n_c, b)](xh, dy, stats, s, ch, chunk,
-                                            BLOCK_S=block_s, BLOCK_C=block_c, num_warps=8)
+    plan = k5_plan(xh.shape, _build.sm_count(xh.device))
+    b, ch = plan.shape[0], plan.shape[4]
+    buf = torch.empty(plan.buffer, dtype=torch.float32, device=xh.device)
+    args = (xh, dy, buf, plan.voxels, ch, plan.chunk, plan.n_chunks, plan.block_s,
+            plan.block_c)
+    sum_args = (buf, ch, plan.n_chunks, K5_SUM_ROWS, plan.block_c)
+    key = (plan, xh.device, xh.data_ptr() % 16 == 0, dy.data_ptr() % 16 == 0)
+    compiled = k5_kernels.get(key)
+    if compiled is None:
+        # the first call of a key compiles through Triton's dispatcher; later
+        # calls launch the compiled pair directly, without the dispatcher's
+        # per-call binding and cache lookup, most of the host's time a call
+        _, _, (kernel, sum_kernel), _ = _ad_triton()
+        k = kernel[plan.grid](*args[:7], BLOCK_S=plan.block_s, BLOCK_C=plan.block_c,
+                              num_warps=K5_WARPS)
+        s = sum_kernel[plan.sum_grid](*sum_args[:3], BLOCK_R=K5_SUM_ROWS,
+                                      BLOCK_C=plan.block_c, num_warps=4)
+        k5_kernels[key] = (k, s, k[plan.grid], s[plan.sum_grid])
+    else:
+        compiled[2](*args)
+        compiled[3](*sum_args)
     launches["in_bwd_stats"] += 1
-    return stats
+    return buf[:b]
 
 
 def in_bwd_apply(xh: torch.Tensor, dy: torch.Tensor, m1: torch.Tensor,

@@ -54,7 +54,6 @@ XT = 8                  # x positions a thread computes (``XT`` in both sources)
 MAX_THREADS = 128       # K3's block (``MAX_THREADS`` in depthwise3.cu)
 K7_MAX_THREADS = 256    # K7's block (``MAX_THREADS`` in depthwise3_grads.cu)
 STAGES = 4              # planes in the shared-memory ring
-SMEM_MAX = 232448       # shared memory a block can use on the H100 (227 KB)
 K3_BLOCKS_PER_SM = 4    # K3's ``__launch_bounds__`` (127 registers)
 K7_BLOCKS_PER_SM = 2    # K7's ``__launch_bounds__`` (128 registers)
 TAPS = 28               # K7's 27 tap sums and the bias sum

@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from mica_tpu_torch.ops import conv3d_in
-from mica_tpu_torch.ops.conv3d_in import K1_CONFIGS, SMEM_MAX, k1_plan
+from mica_tpu_torch.ops._build import SMEM_MAX
+from mica_tpu_torch.ops.conv3d_in import K1_CONFIGS, k1_plan
 
 SHAPES = [(8, 64, 64, 64), (2, 16, 16, 16), (3, 5, 7, 9), (1, 3, 1, 130)]
 

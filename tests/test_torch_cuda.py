@@ -10,7 +10,7 @@ Tolerance: 1e-2 of the largest reference value (one bf16 rounding of
 the output is 2^-9 relative), statistics 1e-4 relative (f32 sums in
 another order, with atomics).  K4 and K6 are bitwise equal to their bf16
 plain versions; K5's and K7's f32 sums stay within 1e-5 of the sum of
-the terms' magnitudes, and K7's are equal to the bit from call to call.
+the terms' magnitudes, and both are equal to the bit from call to call.
 ``Conv3dInReluFn``'s output and gradients stay
 within 1e-2 relative L2 of the same function run on the CPU.  K8 stays
 within 1e-2 of the largest reference value (f32 sums in another order, one
@@ -239,6 +239,50 @@ def test_in_bwd_kernels_match_plain(gen, shape):
 
 
 @pytest.mark.parametrize("shape", [
+    (1, 64, 64, 64, 32),              # batch 1 at a short C 32 site
+    (2, 5, 6, 11, 24),                # C 24; 330 voxels, not a multiple of the tile
+    (3, 7, 9, 5, 96),                 # C 96: one masked 128-channel block
+    (1, 9, 10, 11, 256),              # two channel blocks
+    (8, 16, 16, 16, 512),
+])
+def test_in_bwd_stats_is_deterministic_at_odd_shapes(gen, shape):
+    """K5 within 1e-5 of the terms' magnitudes and equal to the bit from
+    call to call: partials of fixed chunks summed in a fixed order."""
+    from mica_tpu_torch.ops import conv3d_in
+
+    xh = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+    dy = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+    before = conv3d_in.launches["in_bwd_stats"]
+    st = conv3d_in.in_bwd_stats(xh, dy)
+    assert conv3d_in.launches["in_bwd_stats"] == before + 1
+    assert st.shape == (shape[0], 2, shape[-1]) and st.dtype == torch.float32
+    want = conv3d_in.in_bwd_stats_plain(xh, dy)
+    mag = conv3d_in.in_bwd_stats_plain(xh.abs(), dy.abs())
+    assert ((st - want).abs() <= 1e-5 * mag + 1e-4).all()
+    assert torch.equal(conv3d_in.in_bwd_stats(xh, dy), st)
+
+
+def test_in_bwd_stats_takes_a_misaligned_operand(gen):
+    """K5 at one plan on aligned operands, then on an x̂ 2 bytes past a
+    16-byte boundary: Triton specialises a kernel on its pointers'
+    alignment, so the wrapper keeps a compiled pair for each; both within
+    1e-5 of the terms' magnitudes and equal to the bit from call to call."""
+    from mica_tpu_torch.ops import conv3d_in
+
+    shape = (2, 5, 6, 11, 24)
+    n = 2 * 5 * 6 * 11 * 24
+    flat = torch.randn(n + 1, device="cuda", generator=gen).to(torch.bfloat16)
+    dy = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+    for xh in (flat[:n].view(shape), flat[1:].view(shape)):
+        st = conv3d_in.in_bwd_stats(xh, dy)
+        want = conv3d_in.in_bwd_stats_plain(xh, dy)
+        mag = conv3d_in.in_bwd_stats_plain(xh.abs(), dy.abs())
+        assert ((st - want).abs() <= 1e-5 * mag + 1e-4).all()
+        assert torch.equal(conv3d_in.in_bwd_stats(xh, dy), st)
+    assert flat[1:].data_ptr() % 16 == 2
+
+
+@pytest.mark.parametrize("shape", [
     (2, 7, 6, 9, 64), (1, 16, 16, 16, 256), (2, 3, 4, 5, 8),
     (1, 64, 64, 64, 64),              # batch 1: the grid is cut into z segments
     (3, 5, 7, 9, 16),                 # H, W not multiples of the tile; C 16
@@ -328,21 +372,34 @@ def test_autograd_fns_launch_their_kernels(gen):
     assert torch.count_nonzero(b.grad) == 0 and x.grad.shape == x.shape
 
 
+def _stem_inputs(gen, shape, c, offset=0):
+    flat = torch.randn(offset + int(torch.tensor(shape).prod()), device="cuda", generator=gen)
+    x = flat.to(torch.bfloat16)[offset:].view(*shape)
+    ws = [torch.randn(c // 4, 1, k, k, k, device="cuda", generator=gen) * k ** -1.5
+          for k in (3, 5, 7, 9)]
+    return x, ws, torch.randn(c, device="cuda", generator=gen)
+
+
 @pytest.mark.parametrize("shape,c", [
     ((2, 16, 16, 16), 128),   # even, whole tiles
     ((1, 15, 17, 19), 128),   # odd: masked tiles on every axis
     ((2, 5, 6, 7), 32),       # smaller than a tile, the narrow channel tile
     ((1, 8, 8, 33), 64),
+    ((8, 64, 64, 64), 32),    # the main path's batch at every stem width: NG 8, 16, 32
+    ((8, 64, 64, 64), 64),
+    ((8, 64, 64, 64), 128),
+    ((2, 33, 35, 37), 32),    # W % 8 != 0: the halo by 2-byte loads
+    ((2, 33, 35, 37), 64),
+    ((2, 33, 35, 37), 128),
+    ((1, 9, 10, 24), 96),     # three passes of NG 8
+    ((1, 6, 7, 16), 256),     # two passes of NG 32
 ])
 def test_stem_conv_matches_plain(gen, shape, c):
     from mica_tpu_torch.ops import stem
 
     torch.backends.cudnn.allow_tf32 = False
-    x = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
-    ws = [torch.randn(c // 4, 1, k, k, k, device="cuda", generator=gen) * k ** -1.5
-          for k in (3, 5, 7, 9)]
-    bias = torch.randn(c, device="cuda", generator=gen)
-    packed = stem.pack_weight(stem.combine_weights(ws), torch.bfloat16)
+    x, ws, bias = _stem_inputs(gen, shape, c)
+    packed = stem.pack_weight(ws, torch.bfloat16)
     before = stem.launches["stem9"]
     got = stem.stem_conv(x, packed, bias)
     torch.cuda.synchronize()
@@ -355,6 +412,22 @@ def test_stem_conv_matches_plain(gen, shape, c):
     with pytest.raises(RuntimeError, match="no backward"):
         stem.stem_conv(x, packed, bias.requires_grad_())
     assert stem.launches["stem9"] == before + 1
+
+
+def test_stem_conv_takes_an_unaligned_x_and_refuses_other_widths(gen):
+    """An x 2 bytes past a 16-byte boundary takes the 2-byte halo loads and
+    agrees; C = 48 (groups of 12) is refused before any launch."""
+    from mica_tpu_torch.ops import stem
+
+    x, ws, bias = _stem_inputs(gen, (2, 8, 8, 32), 64, offset=1)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    packed = stem.pack_weight(ws, torch.bfloat16)
+    _close(stem.stem_conv(x, packed, bias), stem.stem_conv_plain(x.float(), packed.float(), bias))
+    x, ws, bias = _stem_inputs(gen, (1, 8, 8, 8), 48)
+    before = stem.launches["stem9"]
+    with pytest.raises(ValueError, match="C % 32"):
+        stem.stem_conv(x, stem.pack_weight(ws, torch.bfloat16), bias)
+    assert stem.launches["stem9"] == before
 
 
 @pytest.mark.parametrize("with_af", [True, False])

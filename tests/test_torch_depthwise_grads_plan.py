@@ -28,8 +28,8 @@ import torch.nn.functional as F
 
 from mica_tpu.ops.depthwise_pallas import _depthwise_conv3_grads
 from mica_tpu_torch.ops import depthwise
-from mica_tpu_torch.ops.depthwise import (K7_BLOCKS_PER_SM, K7_MAX_THREADS, SMEM_MAX, TAPS,
-                                          XT, k7_plan)
+from mica_tpu_torch.ops._build import SMEM_MAX
+from mica_tpu_torch.ops.depthwise import K7_BLOCKS_PER_SM, K7_MAX_THREADS, TAPS, XT, k7_plan
 
 SHAPES = [(8, 64, 64, 64), (2, 16, 16, 16), (3, 5, 7, 9), (1, 3, 1, 130)]
 SMALL = [(2, 16, 16, 16), (3, 5, 7, 9), (1, 3, 1, 130), (1, 20, 12, 8)]

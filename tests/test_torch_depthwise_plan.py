@@ -18,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from mica_tpu_torch.ops import depthwise
-from mica_tpu_torch.ops.depthwise import MAX_THREADS, SMEM_MAX, XT, k3_plan
+from mica_tpu_torch.ops._build import SMEM_MAX
+from mica_tpu_torch.ops.depthwise import MAX_THREADS, XT, k3_plan
 
 SHAPES = [(8, 64, 64, 64), (2, 16, 16, 16), (3, 5, 7, 9), (1, 3, 1, 130)]
 SMALL = SHAPES[1:]

@@ -35,7 +35,7 @@ def _torch_weights(kernels):
 
 
 def _packed(kernels, dtype=torch.float32):
-    return stem.pack_weight(stem.combine_weights(_torch_weights(kernels)), dtype)
+    return stem.pack_weight(_torch_weights(kernels), dtype)
 
 
 @pytest.mark.parametrize("shape", [(1, 7, 9, 5), (2, 5, 6, 11)])
@@ -67,16 +67,24 @@ def test_plain_matches_xla_stem_at_even_size(rng):
 
 
 def test_pack_weight_layout_round_trips(rng):
-    kernels, _ = _weights(rng, 8)
-    w9 = stem.combine_weights(_torch_weights(kernels))
-    packed = stem.pack_weight(w9, torch.float32)
-    assert packed.shape == (8, stem.K_PACKED)
-    assert torch.equal(stem.unpack_weight(packed), w9)
-    # tap (dz, dy, dx) of channel c sits at (dz*9 + dy)*10 + dx; the rest is zero
-    assert packed[3, (2 * 9 + 5) * 10 + 7] == w9[3, 0, 2, 5, 7]
-    assert not packed[:, 9::10][:, :81].any() and not packed[:, 810:].any()
+    kernels, _ = _weights(rng, 8)                   # 2 channels a group: padded to 8
+    ws = _torch_weights(kernels)
+    packed = stem.pack_weight(ws, torch.float32)
+    assert packed.shape == (1, stem.K_TOTAL * 8)
+    assert all(torch.equal(a, b) for a, b in zip(stem.unpack_weight(packed, 8), ws))
+    # tap (dz, dy, dx) of channel n of group k sits at K index (dz*k + dy)*(k + 1) + dx
+    # of the group, in the k16 step's core matrix [n / 8][K half][n % 8][K % 8]
+    off = sum(stem.K_GROUP[:2])                     # the 7^3 group
+    kk = (2 * 7 + 5) * 8 + 6
+    s, half, e = kk // 16, (kk % 16) // 8, kk % 8
+    assert packed[0, off * 8 + s * 8 * 16 + half * 64 + 1 * 8 + e] == ws[2][1, 0, 2, 5, 6]
+    # the zero tap ending each row, the K padding and the padded channels
+    w3 = packed[0, :stem.K_GROUP[0] * 8].reshape(3, 1, 2, 8, 8).permute(1, 3, 0, 2, 4).reshape(8, 48)
+    assert not w3[:, 3:36:4].any() and not w3[:, 36:].any() and not w3[2:].any()
+    assert torch.equal(w3[:2, :36].reshape(2, 9, 4)[..., :3].reshape(2, 1, 3, 3, 3), ws[0])
     # the 3^3 kernel is embedded at the centre of the 9^3 one
-    assert torch.equal(w9[0, 0, 3:6, 3:6, 3:6], _torch_weights(kernels)[0][0, 0])
+    w9 = stem.combine_weights(ws)
+    assert torch.equal(w9[0, 0, 3:6, 3:6, 3:6], ws[0][0, 0])
     assert w9[0, 0, :3].abs().sum() == 0
 
 
@@ -177,4 +185,4 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         stem.stem_conv(x, torch.zeros(16, 729), torch.zeros(16))
     with pytest.raises(TypeError):
-        stem.stem_conv(x, torch.zeros(16, stem.K_PACKED, dtype=torch.bfloat16), torch.zeros(16))
+        stem.stem_conv(x, torch.zeros(1, stem.K_TOTAL * 8, dtype=torch.bfloat16), torch.zeros(16))
