@@ -7,8 +7,10 @@ Phases, each printing what it found; any failure ends the run non-zero:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build the CUDA kernels from ``mica_tpu_torch/csrc`` (one ``nvcc`` per
-     source, all at once), then K1's, K3's, K7's and K8's ``-Xptxas -v``
-     report (registers, barriers, spills per kernel);
+     source, all at once) and, beside them, the all-atom tool from
+     ``mica_tpu_torch/tools/allatom_src`` (``g++``), then K1's, K3's, K7's
+     and K8's ``-Xptxas -v`` report (registers, barriers, spills per
+     kernel);
   3. hold every kernel against its plain PyTorch version at the shapes of
      its path (batch 8, 64^3 windows, the widths of MICA at base 64; for
      K1 also every dx geometry of a training step; K8 also at an odd
@@ -27,7 +29,12 @@ Phases, each printing what it found; any failure ends the run non-zero:
      launches enqueued one by one; the same replayed from a CUDA graph
      printed beside them); K8 over 20
      launches with its plan, its share of the bound and the MMAs it issues
-     over the real taps' (<= 1.2x at the main path's shape);
+     over the real taps' (<= 1.2x at the main path's shape); K9 with the
+     words it moves at each site (16-byte words at the engine's frame and
+     starts, 4-byte words on a frame whose rows are not 16-byte aligned),
+     its device time from a CUDA graph's replay of 20 launches walking the
+     frame's batches at >= 50 % of its bound, the eager time beside it, and
+     the host's time to enqueue a call in turns with PR 3's wrapper;
   4. the prediction path: ``predict_map`` on a synthetic map written to an
      MRC, with a docked model for the AF3 encoding, random weights from
      ``--seed``, bf16, batch 8, core 48 / halo 8, twice: the process's
@@ -41,8 +48,11 @@ Phases, each printing what it found; any failure ends the run non-zero:
      candidate extraction on them (random weights: only what it returned
      is recorded), the launch counts of that run alone; then, from the
      scenario's perfect volumes put on the card, device extraction held
-     against the host's, fragments, AF3 alignment, the initial model and
-     gap filling, and the CA model held against the scenario's chain;
+     against the host's, fragments, AF3 alignment, the initial model, gap
+     filling, the all-atom rebuild (``--run_pulchra``: every residue with
+     N, CA, C, O and its type's side chain, finite coordinates; its host
+     seconds) and PHENIX's command (``--run_phenix``; PHENIX is not
+     installed), and the CA model held against the scenario's chain;
   6. the training path: ``Trainer`` at base 64, bf16, batch 8 of 64^3
      ``synthetic_batch`` windows, recomputation and augmentation on, the
      epoch-0 dropout rate; 2 warm-up and 5 timed steps with the launch
@@ -75,12 +85,16 @@ The kernels' JSON record and the card's name come before the last line,
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
+import os
+import platform
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -672,13 +686,107 @@ def check_k8(torch, F, g, detail):
     return rows
 
 
+def host_ms(torch, fn, reps: int = 200) -> float:
+    """ms of host time per call of ``fn`` enqueued ``reps`` times in a row
+    (after a synchronize, before the one that ends the run)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def k9_path(extent, w, starts) -> str:
+    """What K9's word kernel does with these windows: a window's rows move
+    in 16-byte words where its source and output rows are 16-byte aligned
+    (Z, w and its z start multiples of 4 words), in 4-byte words else."""
+    wide = sum(extent[2] % 4 == 0 and w % 4 == 0 and z % 4 == 0 for _, _, z in starts)
+    return (f"path: word kernel, {len(starts) * w} x 4 blocks of 256 threads, {wide} of "
+            f"{len(starts)} windows in 16-byte words, {len(starts) - wide} in 4-byte words")
+
+
+def k9_pr3_wrapper(torch, _build, wc):
+    """PR 3's K9 wrapper, timed beside today's for its host cost: the same
+    checks, allocations and launch, but the C function looked up and
+    declared on every call.  It counts no launch."""
+    def call(pm, af, st, w):
+        dev, n = pm.device, int(st.shape[0])
+        wc._check(pm, torch.float32, None, dev, "gather_windows map")
+        if pm.dim() != 3 or n < 1 or min(pm.shape) < w:
+            raise ValueError(f"gather_windows: map {tuple(pm.shape)}, {n} starts, window {w}")
+        wc._check(st, torch.int32, (n, 3), dev, "gather_windows starts")
+        wins = torch.empty((n, w, w, w), dtype=torch.float32, device=dev)
+        afs = None
+        if af is not None:
+            wc._check(af, torch.int32, pm.shape, dev, "gather_windows af")
+            afs = torch.empty((n, w, w, w), dtype=torch.int32, device=dev)
+        fn = getattr(_build.load("window_copy"), "gather_windows_u32")
+        fn.argtypes = wc._GATHER_ARGS
+        fn.restype = ctypes.c_int
+        x, y, z = pm.shape
+        err = fn(pm.data_ptr(), None if af is None else af.data_ptr(), st.data_ptr(),
+                 wins.data_ptr(), None if afs is None else afs.data_ptr(), n, x, y, z, w,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "gather_windows")
+        return wins if afs is None else (wins, afs)
+
+    return call
+
+
+def k9_host_parts(torch, _build, wc, pm, pa, st, w) -> dict:
+    """The host's time of the parts of a K9 call with AF, each enqueued 200
+    times in a row: the C entry (the launch), the two outputs' allocation,
+    one int32 buffer's for both with its views (a design tried and
+    dropped), the C function's lookup (cached today, looked up and
+    declared by PR 3's wrapper) and the current stream's lookup."""
+    n = int(st.shape[0])
+    shape = (n, w, w, w)
+    wins = torch.empty(shape, dtype=torch.float32, device=pm.device)
+    afs = torch.empty(shape, dtype=torch.int32, device=pm.device)
+    entry = _build.function("window_copy", "gather_windows_u32", wc._GATHER_ARGS)
+    stream = torch.cuda.current_stream(pm.device).cuda_stream
+    args = (pm.data_ptr(), pa.data_ptr(), st.data_ptr(), wins.data_ptr(), afs.data_ptr(),
+            n, *pm.shape, w, stream)
+
+    def one_buffer():
+        buf = torch.empty((2,) + shape, dtype=torch.int32, device=pm.device)
+        return buf[0].view(torch.float32), buf[1]
+
+    def declare():
+        fn = getattr(_build.load("window_copy"), "gather_windows_u32")
+        fn.argtypes = wc._GATHER_ARGS
+        fn.restype = ctypes.c_int
+
+    return {"C entry": host_ms(torch, lambda: entry(*args)),
+            "two torch.empty": host_ms(torch, lambda: (
+                torch.empty(shape, dtype=torch.float32, device=pm.device),
+                torch.empty(shape, dtype=torch.int32, device=pm.device))),
+            "one torch.empty and two views": host_ms(torch, one_buffer),
+            "function, cached": host_ms(torch, lambda: _build.function(
+                "window_copy", "gather_windows_u32", wc._GATHER_ARGS)),
+            "function, looked up and declared (PR 3)": host_ms(torch, declare),
+            "current_stream": host_ms(
+                torch, lambda: torch.cuda.current_stream(pm.device).cuda_stream)}
+
+
 def check_k9_k10(torch, g, seed, detail):
     """K9 and K10 at the engine's geometry on a 160^3 map (4 cores of 48 an
     axis: volumes 192^3, the padded map 208^3), n 8, w 64, c 48, A 20, to
     the bit against their plain versions: with and without the AF words, at
     the engine's aligned starts (timed) and at arbitrary ones, and with a
-    tail that must be neither read nor written."""
-    from mica_tpu_torch.ops import window_copy as wc
+    tail that must be neither read nor written.  K9 also on a frame whose
+    rows are not 16-byte aligned, and the words it moves at each site
+    printed.  K9's device time is a CUDA graph's replay of 20 launches, on
+    the same starts and walking the frame's 64 windows in the engine's 8
+    batches (the source then comes from device memory, not the L2 cache),
+    the latter at >= 50 % of its bound; beside it the eager time (20
+    launches enqueued one by one) and the host's time to enqueue a call,
+    in turns with PR 3's wrapper, and by part."""
+    from mica_tpu_torch.ops import _build, window_copy as wc
 
     n, w, c, a, per_axis = BATCH, WIN, 48, 20, 4
     vol, ext = per_axis * c, per_axis * c + (w - c)
@@ -688,6 +796,10 @@ def check_k9_k10(torch, g, seed, detail):
     host = [tuple(r) for r in starts.tolist()]
     pm = torch.rand((ext,) * 3, device="cuda", generator=g)
     pa = torch.randint(0, 2 ** 24, (ext,) * 3, device="cuda", generator=g, dtype=torch.int32)
+    # the frame's 64 windows in the engine's 8 batches of 8
+    walk = wc.starts_tensor(grid[rng.permutation(len(grid))], pm.shape, w, "cuda")
+    batches = [walk[k:k + n] for k in range(0, len(grid), n)]
+    pr3 = k9_pr3_wrapper(torch, _build, wc)
 
     def worst(got, want):
         """Largest |difference| over the tensors of ``got`` and ``want``, in
@@ -700,27 +812,68 @@ def check_k9_k10(torch, g, seed, detail):
     for with_af in (True, False):
         af = pa if with_af else None
         site = "af" if with_af else "no_af"
-        err = 0.0
+        srcs = (pm, pa) if with_af else (pm,)
+        err, paths = 0.0, {}
         for label, pts in (("aligned", starts),
                            ("unaligned", rng.integers(0, ext - w + 1, size=(n, 3)))):
             st = wc.starts_tensor(pts, pm.shape, w, "cuda")
-            err = max(err, worst(wc.gather_windows(pm, af, st, w),
-                                 wc.gather_windows_plain(pm, af, st, w)))
+            paths[label] = k9_path(pm.shape, w, pts.tolist())
+            want = wc.gather_windows_plain(pm, af, st, w)
+            err = max(err, worst(wc.gather_windows(pm, af, st, w), want))
             fail_if(err != 0.0, f"K9 {site}, {label} starts: differs from its plain version "
                                 f"by {err}")
+            fail_if(worst(pr3(pm, af, st, w), want) != 0.0, f"K9 {site}, {label} starts: PR 3's "
+                                                            f"wrapper differs")
         st = wc.starts_tensor(starts, pm.shape, w, "cuda")
-        srcs = (pm, pa) if with_af else (pm,)
         nbytes = 2.0 * 4 * n * w ** 3 * len(srcs) + 12.0 * n
         bnd, by = bound_ms(0.0, nbytes, PEAK_F32)
+        it = iter(batches * 3)
+        walk_ms = graph_ms(lambda: wc.gather_windows(pm, af, next(it), w), reps=20)
+        same_ms = graph_ms(lambda: wc.gather_windows(pm, af, st, w), reps=20)
         ms = cuda_ms(lambda: wc.gather_windows(pm, af, st, w), reps=20)
+        enq = {"today": [], "PR 3": []}
+        for _ in range(4):                           # in turns
+            enq["today"].append(host_ms(torch, lambda: wc.gather_windows(pm, af, st, w)))
+            enq["PR 3"].append(host_ms(torch, lambda: pr3(pm, af, st, w)))
+        med = {k: float(np.median(v)) for k, v in enq.items()}
         plain = cuda_ms(lambda: wc.gather_windows_plain(pm, af, st, w), reps=5)
         lib = cuda_ms(lambda: [torch.stack([s[x:x + w, y:y + w, z:z + w] for x, y, z in host])
                                for s in srcs], reps=5)
-        rows9.append(dict(site=site, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                          bound_ms=bnd, bound_by=by, gbytes_per_s=nbytes / ms / 1e6))
-        print(f"K9 {site} (n {n}, w {w}, map {ext}^3): bitwise equal at aligned and unaligned "
-              f"starts; time {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain {plain:.4f} ms, "
-              f"torch.stack of slices {lib:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+        rows9.append(dict(site=site, max_abs_err=err, ms=ms, graph_walk_ms=walk_ms,
+                          graph_ms=same_ms, host_ms=med["today"], host_ms_pr3=med["PR 3"],
+                          host_readings=enq, paths=paths, plain_ms=plain, library_ms=lib,
+                          bound_ms=bnd, bound_by=by, bound_share=bnd / walk_ms,
+                          gbytes_per_s=nbytes / walk_ms / 1e6))
+        print(f"K9 {site} (n {n}, w {w}, map {ext}^3): aligned starts {paths['aligned']}; "
+              f"unaligned starts {paths['unaligned']}; bitwise equal at both; device time (a "
+              f"CUDA graph's replay of 20 launches) {walk_ms:.4f} ms walking the frame's 8 "
+              f"batches ({100 * bnd / walk_ms:.1f} % of its bound, "
+              f"{nbytes / walk_ms / 1e6:.1f} GB/s), {same_ms:.4f} ms on the same starts; eager "
+              f"{ms:.4f} ms (20 launches enqueued one by one); host ms to enqueue a call, "
+              f"median of 4 readings in turns: {med['today']:.4f} (readings "
+              f"{', '.join(f'{v:.4f}' for v in enq['today'])}), PR 3's wrapper "
+              f"{med['PR 3']:.4f} ({', '.join(f'{v:.4f}' for v in enq['PR 3'])}); plain "
+              f"{plain:.4f} ms, torch.stack of slices {lib:.4f} ms, bound {bnd:.4f} ms ({by})",
+              flush=True)
+        fail_if(bnd / walk_ms < 0.5, f"K9 {site}: {100 * bnd / walk_ms:.1f} % of its bound, "
+                                     f"short of 50 %")
+        if with_af:
+            rows9[-1]["host_parts_ms"] = parts = k9_host_parts(torch, _build, wc, pm, pa, st, w)
+            print("K9 af, host ms a call by part: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
+
+    # a frame whose rows are not 16-byte aligned: z-rows of 45 words
+    odd, ow = (41, 43, 45), 16
+    om = torch.rand(odd, device="cuda", generator=g)
+    oa = torch.randint(0, 2 ** 24, odd, device="cuda", generator=g, dtype=torch.int32)
+    opts = np.array([[0, 0, 0], [25, 27, 29], [3, 5, 7], [13, 1, 22]])
+    ost = wc.starts_tensor(opts, odd, ow, "cuda")
+    oerr = worst(wc.gather_windows(om, oa, ost, ow), wc.gather_windows_plain(om, oa, ost, ow))
+    fail_if(oerr != 0.0, f"K9 {odd}: differs from its plain version by {oerr}")
+    opath = k9_path(odd, ow, opts.tolist())
+    print(f"K9 odd frame {'x'.join(map(str, odd))}, w {ow}, AF: {opath}; bitwise equal",
+          flush=True)
+    detail["gather_windows_odd"] = dict(extent=odd, w=ow, path=opath, max_abs_err=oerr)
 
     vols = (torch.rand((vol,) * 3, device="cuda", generator=g),
             torch.rand((vol,) * 3, device="cuda", generator=g),
@@ -908,10 +1061,13 @@ def modelling_path(torch, args, model, detail):
         sol = cli_run.build_solver(cli_run.build_parser().parse_args([
             "-m", str(root / "emd_0001.mrc"), "-f", str(root / "0001.fasta"), "-i", str(inp),
             "-o", str(root / "out"), "--model_path", str(root / "weights.pth"),
-            "--batch_size", str(BATCH), "--base_filters", str(BASE), "--seed", str(args.seed)]))
+            "--batch_size", str(BATCH), "--base_filters", str(BASE), "--seed", str(args.seed),
+            "--run_pulchra", "--run_phenix"]))
         cfg = sol.config
-        fail_if((cfg.protocol, cfg.window_core, cfg.window_halo, cfg.dtype, cfg.device)
-                != ("AF3_struct", 48, 8, torch.bfloat16, "cuda"), f"unexpected config {cfg}")
+        fail_if((cfg.protocol, cfg.window_core, cfg.window_halo, cfg.dtype, cfg.device,
+                 cfg.run_pulchra, cfg.run_phenix)
+                != ("AF3_struct", 48, 8, torch.bfloat16, "cuda", True, True),
+                f"unexpected config {cfg}")
         res = sol.check_seq()
         fail_if(res != "success", f"check_seq: {res}")
 
@@ -982,6 +1138,7 @@ def modelling_path(torch, args, model, detail):
                               axis=-1).min(axis=1)
         median = float(np.median(dist))
         fail_if(not median < 1.5, f"median distance to the chain {median} A")
+        all_atom = check_all_atom(pdb_io, sol, placed)
     print(f"  perfect volumes on the card: {len(sol.cands)} candidates, equal to the host "
           f"extraction in order and prediction, coords within {d_xyz:.1e}, aa within "
           f"{d_aa:.1e} (tol 1e-12); device {sol.time_cost['clustering']:.3f} s "
@@ -989,10 +1146,50 @@ def modelling_path(torch, args, model, detail):
     print(f"  stages (s): {json.dumps(sol.time_cost)}", flush=True)
     print(f"  CA model: {len(placed)} of {len(ca)} residues placed (> 60 %), median distance "
           f"to the chain {median:.3f} A (< 1.5)", flush=True)
+    print(f"  all-atom model (cli.run --run_pulchra): {all_atom['atoms']} atoms in "
+          f"{all_atom['residues']} residues, each with N, CA, C, O and its type's side chain, "
+          f"coordinates finite; run_pulchra {sol.time_cost['run_pulchra']:.3f} s on the host "
+          f"({platform.node()}, {os.cpu_count()} CPUs; the tool built from "
+          f"mica_tpu_torch/tools/allatom_src)", flush=True)
+    print(f"  PHENIX (--run_phenix, not installed: the command only): {sol.phenix_command}",
+          flush=True)
     detail["modelling"] = dict(time_cost=dict(sol.time_cost), extraction_stats=sol.extraction_stats,
                                host_extraction_s=host_s, placed=int(len(placed)),
-                               residues=int(len(ca)), median_distance=median)
+                               residues=int(len(ca)), median_distance=median,
+                               all_atom=all_atom, host=platform.node(),
+                               phenix_command=sol.phenix_command)
     return launches
+
+
+# heavy atoms of each residue type's side chain, CB included, as the
+# all-atom tool writes them (no hydrogens, no OXT)
+SIDE_CHAIN_ATOMS = {"ALA": 1, "ARG": 7, "ASN": 4, "ASP": 4, "CYS": 2, "GLN": 5, "GLU": 5,
+                    "GLY": 0, "HIS": 6, "ILE": 4, "LEU": 4, "LYS": 5, "MET": 4, "PHE": 7,
+                    "PRO": 3, "SER": 2, "THR": 3, "TRP": 10, "TYR": 8, "VAL": 3}
+
+
+def check_all_atom(pdb_io, sol, placed) -> dict:
+    """The all-atom model ``Solver.run`` wrote from the CA model: a residue
+    for each placed CA, each with N, CA, C and O and as many heavy atoms as
+    its type has, every coordinate finite."""
+    path = Path(sol.ca_model_path.replace("_ca_model.pdb", "_all_atom_model.pdb"))
+    fail_if("run_pulchra" not in sol.time_cost or not path.exists(),
+            f"no all-atom model at {path}")
+    fail_if("phenix_refine" not in sol.time_cost or not sol.phenix_command,
+            "the PHENIX stage did not run")
+    atoms = pdb_io.parse_pdb(path)
+    fail_if(not np.isfinite(pdb_io.coords(atoms)).all(), "all-atom coordinates not finite")
+    residues = {}
+    for at in atoms:
+        key = (str(at["chain"]), int(at["res_id"]))
+        residues.setdefault(key, (str(at["res_name"]), set()))[1].add(str(at["name"]))
+    want = {(str(at["chain"]), int(at["res_id"])) for at in placed}
+    fail_if(set(residues) != want, f"{len(residues)} all-atom residues for {len(want)} CAs")
+    for key, (res, names) in residues.items():
+        fail_if(not {"N", "CA", "C", "O"} <= names, f"residue {key} {res}: backbone {names}")
+        fail_if(len(names) != 4 + SIDE_CHAIN_ATOMS[res],
+                f"residue {key} {res}: {len(names)} atoms, expected {4 + SIDE_CHAIN_ATOMS[res]}")
+    return dict(path=path.name, atoms=int(len(atoms)), residues=len(residues))
 
 
 def small_reference(torch, model, seed, detail):
@@ -1583,8 +1780,18 @@ def main() -> int:
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
+    from mica_tpu_torch.tools import allatom
+
+    def build_allatom():
+        t = time.time()
+        allatom.ensure_built()
+        return time.time() - t
+
     t0 = time.time()
-    per_source = _build.build()
+    with ThreadPoolExecutor(1) as pool:      # g++ beside the nvcc builds
+        allatom_build = pool.submit(build_allatom)
+        per_source = _build.build()
+        per_source["mica_allatom (g++)"] = allatom_build.result()
     print(f"build: {time.time() - t0:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in per_source.items())})",
           flush=True)
     for name in ("conv3d_stats", "depthwise3", "depthwise3_grads", "stem9"):

@@ -1,11 +1,14 @@
-"""Main pipeline CLI: map + FASTA + AF3 inputs -> CA model PDB.
+"""Main pipeline CLI: map + FASTA + AF3 inputs -> CA (and all-atom) model PDB.
 
     python -m mica_tpu_torch.cli.run -m map.mrc -f seq.fasta -i inputdir [-o out]
 
 The flags of ``mica_tpu/cli/run.py``, plus ``--device`` ('cuda', the
-default, or 'cpu') and ``--float32`` as in the port's other CLIs.  The
-all-atom rebuild and the PHENIX refinement are not ported: ``--run_pulchra``
-and ``--run_phenix`` are parsed and refused with an error that says so.
+default, or 'cpu') and ``--float32`` as in the port's other CLIs.
+``--run_pulchra`` rebuilds the CA model to an all-atom model with the native
+tool (built from ``mica_tpu_torch/tools/allatom_src`` on first use), or with
+an external PULCHRA given by ``--pulchra_path``; ``--run_phenix`` then runs
+PHENIX's real-space refinement from the environment script ``--phenix_act``
+(without one, the command is logged and skipped).
 """
 
 from __future__ import annotations
@@ -71,12 +74,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "nstart)*voxel + origin (correct for nonzero-origin "
                         "maps); 'reference' = cand + nstart, byte-compatible "
                         "with the reference's modeler.py:1775-1779")
-    # external tools: parsed for compatibility, refused until they are ported
+    # the all-atom model and its refinement
     p.add_argument("--run_pulchra", action="store_true",
-                   help="all-atom rebuild (not ported yet: raises)")
+                   help="rebuild the CA model to an all-atom model (native tool, or "
+                        "--pulchra_path)")
     p.add_argument("--pulchra_path", default="")
     p.add_argument("--run_phenix", action="store_true",
-                   help="PHENIX refinement (not ported yet: raises)")
+                   help="refine the all-atom model with phenix.real_space_refine "
+                        "(with --run_pulchra; needs --phenix_act)")
     p.add_argument("--phenix_act", default="")
     p.add_argument("--phenix_param", default="")
     return p

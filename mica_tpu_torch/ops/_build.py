@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 
@@ -107,12 +107,20 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+_functions: Dict[Tuple[str, str], Callable] = {}
+
+
 def function(lib: str, name: str, argtypes: list):
     """A C function of ``csrc/<lib>.cu`` with its argument types declared
-    (pointers and the stream as ``c_void_p``) and an int error code."""
-    fn = getattr(load(lib), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    (pointers and the stream as ``c_void_p``) and an int error code, looked
+    up and declared on the first call only (a wrapper's host time matters
+    where its kernel is short)."""
+    fn = _functions.get((lib, name))
+    if fn is None:
+        fn = getattr(load(lib), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[lib, name] = fn
     return fn
 
 

@@ -65,8 +65,9 @@ def gather_windows(padded_map: torch.Tensor, padded_af: Optional[torch.Tensor],
                    starts: torch.Tensor, window: int):
     """K9.  padded_map (X, Y, Z) f32; padded_af (X, Y, Z) int32 (the uint32
     bitfields viewed as int32) or None; starts (n, 3) int32 window origins
-    in the padded frame, on the same device (``starts_tensor`` checks them).
-    Returns (n, w, w, w) f32 [, (n, w, w, w) int32]."""
+    in the padded frame, on the same device (``starts_tensor`` checks them;
+    the kernel skips a window that would leave the volume and leaves its
+    output unwritten).  Returns (n, w, w, w) f32 [, (n, w, w, w) int32]."""
     if padded_map.device.type == "cpu":
         return gather_windows_plain(padded_map, padded_af, starts, window)
     dev, w, n = padded_map.device, int(window), int(starts.shape[0])
@@ -79,11 +80,18 @@ def gather_windows(padded_map: torch.Tensor, padded_af: Optional[torch.Tensor],
     if padded_af is not None:
         _check(padded_af, torch.int32, padded_map.shape, dev, "gather_windows af")
         afs = torch.empty((n, w, w, w), dtype=torch.int32, device=dev)
+    return _launch(padded_map, padded_af, starts, wins, afs)
+
+
+def _launch(padded_map, padded_af, starts, wins, afs):
+    """K9's launch on checked operands into ``wins`` [and ``afs``], each
+    (n, w, w, w); returns them as ``gather_windows`` does."""
     x, y, z = padded_map.shape
+    n, w = wins.shape[0], wins.shape[1]
     err = _build.function("window_copy", "gather_windows_u32", _GATHER_ARGS)(
         padded_map.data_ptr(), None if padded_af is None else padded_af.data_ptr(),
         starts.data_ptr(), wins.data_ptr(), None if afs is None else afs.data_ptr(),
-        n, x, y, z, w, torch.cuda.current_stream(dev).cuda_stream)
+        n, x, y, z, w, torch.cuda.current_stream(wins.device).cuda_stream)
     _build.check(err, "gather_windows")
     launches["gather_windows"] += 1
     return wins if afs is None else (wins, afs)

@@ -1,4 +1,4 @@
-"""The modeling solver: density map + FASTA (+ AF3) -> CA model PDB.
+"""The modeling solver: density map + FASTA (+ AF3) -> CA and all-atom model PDBs.
 
 Counterpart of ``mica_tpu/trace/solver.py``, stages and names kept.  It
 orchestrates the full post-processing pipeline (the reference's ``Solver``,
@@ -9,8 +9,11 @@ per-stage wall-clock accounting written to a ``time_cost_*.csv``.
 
 The network stage runs the port's ``SlidingWindowPredictor`` on ``device``
 (the card unless the caller asks for the CPU) and keeps the four volumes
-there; candidate extraction reads them in place.  The all-atom rebuild and
-the PHENIX refinement are not ported: asking for either raises.
+there; candidate extraction reads them in place.  With ``run_pulchra`` the
+CA model is rebuilt to an all-atom model (``tools/allatom.py``, a native tool
+run on the host), and with ``run_phenix`` too that model goes to PHENIX's
+real-space refinement (``tools/phenix.py``; without a PHENIX environment the
+command is only recorded, in ``phenix_command``).
 
 Coordinate output: the reference emits ``candidate + nstart offset``
 (modeler.py:1775-1779) and ignores the map origin; this solver uses the
@@ -104,18 +107,11 @@ class ModelingConfig:
         return str(Path(self.input_dir) / f"{name}_af3_docked.pdb")
 
 
-NOT_PORTED = ("the all-atom rebuild (--run_pulchra, mica_tpu/tools/allatom.py) and the "
-              "PHENIX refinement (--run_phenix, mica_tpu/tools/phenix.py) are not ported to "
-              "mica_tpu_torch yet; this package writes the CA model only")
-
-
 class Solver:
     def __init__(self, config: ModelingConfig, params=None):
         """``params``: a ``MICA`` module, a torch state dict or a JAX
         parameter tree; None with ``allow_random_weights`` draws weights
         from ``config.seed``."""
-        if config.run_pulchra or config.run_phenix:
-            raise NotImplementedError(NOT_PORTED)
         self.config = config
         self.params = params
         self.method_name = (
@@ -131,6 +127,7 @@ class Solver:
         self.extraction_stats: Dict[str, float] = {}
         self.predictor_timing: Dict[str, float] = {}
         self.fragments: List[List[int]] = []
+        self.phenix_command: Optional[str] = None
         out = Path(config.output_path)
         out.mkdir(parents=True, exist_ok=True)
         self.ca_model_path = str(
@@ -153,7 +150,8 @@ class Solver:
 
     def model_from_volumes(self) -> str:
         """Every stage after the network, from ``self.volumes`` (predicted,
-        or injected with ``set_volumes``) to the CA model and the time log."""
+        or injected with ``set_volumes``) to the CA model, the all-atom
+        model and its refinement where asked for, and the time log."""
         self._timed("clustering", self._clustering)
         self._timed("fragModeling", self.frag_modeling)
         if self.config.protocol == "AF3_struct":
@@ -165,6 +163,11 @@ class Solver:
         self._timed("initialModelBuilding", self.build_initial)
         self._timed("gapFilling", self.fill_gaps)
 
+        all_atom_model = None
+        if self.config.run_pulchra:
+            all_atom_model = self._timed("run_pulchra", self.rebuild_all_atom)
+            if all_atom_model and self.config.run_phenix:
+                self._timed("phenix_refine", lambda: self.phenix_refine(all_atom_model))
         self.time_record()
         return "success"
 
@@ -399,6 +402,25 @@ class Solver:
         lines.append("END")
         Path(path).write_text("\n".join(lines) + "\n")
         logger.info("wrote %s (%d atoms)", path, atom_ix)
+
+    # ==================================================================
+    def rebuild_all_atom(self) -> Optional[str]:
+        """CA model -> all-atom model via the native reconstruction tool."""
+        from ..tools.allatom import rebuild_ca_model
+
+        out = self.ca_model_path.replace("_ca_model.pdb", "_all_atom_model.pdb")
+        return rebuild_ca_model(
+            self.ca_model_path, out, pulchra_path=self.config.pulchra_path or None
+        )
+
+    def phenix_refine(self, all_atom_model: str) -> None:
+        from ..tools.phenix import real_space_refine
+
+        self.phenix_command = real_space_refine(
+            all_atom_model, self.config.map_path, self.config.resolution,
+            self.config.output_path, self.config.phenix_act,
+            self.config.phenix_param,
+        )
 
     def time_record(self) -> None:
         with open(self.time_log, "w") as w:

@@ -14,7 +14,8 @@ the terms' magnitudes, and both are equal to the bit from call to call.
 ``Conv3dInReluFn``'s output and gradients stay
 within 1e-2 relative L2 of the same function run on the CPU.  K8 stays
 within 1e-2 of the largest reference value (f32 sums in another order, one
-bf16 rounding); K9 and K10 are exact; device candidate extraction equals
+bf16 rounding); K9 and K10 are exact, and K9 leaves a window
+that would leave the volume unwritten; device candidate extraction equals
 the host path in order and ``pred`` and to 1e-12 in ``coords`` and ``aa``.
 K11 and K13 are bitwise equal to their bf16 plain versions, in each mode
 and in place or not; K12's f32 sums stay within 1e-5 of the sum of the
@@ -435,6 +436,10 @@ def test_stem_conv_takes_an_unaligned_x_and_refuses_other_widths(gen):
     ((80, 80, 80), 32, [[0, 0, 0], [24, 24, 24], [48, 0, 24], [13, 7, 41], [48, 48, 48]]),
     ((41, 43, 45), 16, [[0, 0, 0], [25, 27, 29], [3, 5, 7]]),      # nothing 16-byte aligned
     ((160, 160, 160), 64, [[0, 48, 96], [96, 0, 48]]),
+    ((208, 208, 208), 64, [[0, 48, 96], [96, 0, 48], [144, 144, 144], [1, 2, 3], [47, 13, 5],
+                           [0, 0, 0], [96, 96, 0], [48, 144, 96]]),   # the engine's frame
+    ((176, 176, 180), 80, [[0, 64, 96], [96, 0, 3], [17, 31, 100]]),
+    ((240, 240, 240), 128, [[0, 112, 112], [112, 0, 1]]),
 ])
 def test_gather_windows_exact(gen, extent, w, starts, with_af):
     from mica_tpu_torch.ops import window_copy as wc
@@ -452,6 +457,31 @@ def test_gather_windows_exact(gen, extent, w, starts, with_af):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("with_af", [True, False])
+@pytest.mark.parametrize("extent,w", [((96, 96, 96), 32), ((41, 43, 45), 16)])
+def test_gather_windows_leaves_a_start_outside_the_volume_unwritten(gen, extent, w, with_af):
+    from mica_tpu_torch.ops import window_copy as wc
+
+    pm = torch.rand(extent, device="cuda", generator=gen)
+    pa = (torch.randint(0, 2 ** 24, extent, device="cuda", generator=gen, dtype=torch.int32)
+          if with_af else None)
+    starts = [[0, 0, 0], [extent[0] - w + 1, 0, 0], [5, 6, 7], [0, -1, 0], [1, 1, extent[2]]]
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")   # not checked on the host
+    # the wrapper's launch, into outputs filled beforehand
+    wins = torch.full((len(starts), w, w, w), -1.0, device="cuda")
+    afs = (torch.full((len(starts), w, w, w), -1, dtype=torch.int32, device="cuda")
+           if with_af else None)
+    got = wc._launch(pm, pa, st, wins, afs)
+    torch.cuda.synchronize()
+    outs = (wins, afs) if with_af else (wins,)
+    assert all(g_ is o for g_, o in zip(got if with_af else (got,), outs))
+    for out, src in zip(outs, (pm, pa)):
+        for i in (0, 2):
+            x, y, z = starts[i]
+            assert torch.equal(out[i], src[x:x + w, y:y + w, z:z + w])
+        assert bool((out[[1, 3, 4]] == -1).all())     # skipped whole, never written
 
 
 @pytest.mark.parametrize("extent,c,a,starts,n_valid", [

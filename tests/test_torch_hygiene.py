@@ -83,3 +83,37 @@ def test_kernel_build_is_keyed_by_source():
         assert p.parent == _build.BUILD_DIR and p.name.startswith(name + "-")
         assert (_build.CSRC / f"{name}.cu").exists()
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_tools_read_nothing_of_the_jax_package(tmp_path):
+    """The all-atom tool and the PHENIX wrappers use the port's own sources,
+    build directory and parameters: nothing they name, open or run lies
+    under ``mica_tpu/``.  Checked in a subprocess with an audit hook on
+    every file opened and every process started while the tool is built,
+    a CA model rebuilt and a PHENIX command made."""
+    from mica_tpu_torch.tools import allatom, phenix
+
+    jax_pkg = ROOT / "mica_tpu"
+    for path in (allatom.SRC_DIR, allatom.BUILD_DIR, allatom.binary_path(),
+                 Path(phenix.DEFAULT_REFINE_PARAMS)):
+        assert jax_pkg not in path.resolve().parents, path
+    for src in allatom.SRC_DIR.iterdir():
+        assert "mica_tpu/" not in src.read_text(errors="replace"), src
+    code = f"""
+import sys
+seen = []
+sys.addaudithook(lambda ev, args: seen.append((ev, repr(args)))
+                 if ev in ("open", "subprocess.Popen", "os.exec", "os.posix_spawn") else None)
+from mica_tpu_torch.io import pdb as pdb_io
+from mica_tpu_torch.tools import allatom, phenix
+import numpy as np
+t = np.arange(12) * (100.0 * np.pi / 180.0)
+ca = np.stack([2.3 * np.cos(t), 2.3 * np.sin(t), 1.5 * np.arange(12)], axis=1)
+pdb_io.write_ca_pdb({str(tmp_path / "ca.pdb")!r}, [ca], res_names_by_chain=[list("MKTAYIAKQRQI")])
+assert allatom.rebuild_ca_model({str(tmp_path / "ca.pdb")!r}, {str(tmp_path / "aa.pdb")!r})
+assert phenix.real_space_refine({str(tmp_path / "aa.pdb")!r}, "m.mrc", 3.0, ".", "", dry_run=True)
+bad = [s for s in seen if {str(jax_pkg)!r} + "/" in s[1]]
+assert not bad, bad
+assert any(ev == "subprocess.Popen" for ev, _ in seen)
+"""
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)

@@ -10,7 +10,8 @@ tensors) both take their device extraction.
 the volumes it predicts equal the JAX solver's from the same weights at
 atol 1e-4 at halo 2 and 5e-4 at the CLI's own halo 8 (f32 sums in another
 order; the larger window's InstanceNorm sums round more coarsely in XLA).
-(c) The all-atom and PHENIX stages are refused, not skipped.
+(c) ``cli.run --run_pulchra`` writes the all-atom model and ``--run_phenix``
+the PHENIX command (PHENIX is not installed).
 """
 
 import functools
@@ -193,12 +194,38 @@ def test_cli_run_takes_random_weights_only_when_asked(tmp_path, monkeypatch):
     assert {"nnPred", "clustering", "fragModeling"} <= set(solvers[-1].time_cost)
 
 
-@pytest.mark.parametrize("flag", ["--run_pulchra", "--run_phenix"])
-def test_all_atom_and_phenix_are_refused(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli_run.main(["-m", "m.mrc", "-f", "s.fasta", "-i", str(tmp_path), "-o",
-                      str(tmp_path / "out"), "--device", "cpu", flag])
-    assert not (tmp_path / "out").exists()
+@pytest.mark.parametrize("flags", [["--run_pulchra"], ["--run_phenix"],
+                                   ["--run_pulchra", "--run_phenix"]])
+def test_cli_run_writes_the_all_atom_model_and_phenix_command(tmp_path, monkeypatch, flags):
+    """``cli.run`` with the all-atom and PHENIX flags on the CPU.  The network
+    stage is replaced by the scenario's perfect volumes (random weights trace
+    nothing); PHENIX is absent, so its stage records the command it would
+    run.  As in the JAX package, PHENIX refines only a rebuilt model."""
+    ca, seq, vols = make_scenario(n_res=24, shape=(36, 36, 36), seed=3)
+    _write_inputs(tmp_path, ca, seq, vols["backbone_probability"])
+    monkeypatch.setattr(tsolver.Solver, "predict", lambda self: self.set_volumes(dict(vols)))
+    solvers = _capture_solvers(monkeypatch)
+    assert cli_run.main(_cli_flags(tmp_path) + ["-o", str(tmp_path / "out"),
+                                                "--allow_random_weights"] + flags) == 0
+    sol = solvers[-1]
+    pulchra = "--run_pulchra" in flags
+    phenix_too = pulchra and "--run_phenix" in flags
+    assert (sol.config.run_pulchra, sol.config.run_phenix) == (pulchra, "--run_phenix" in flags)
+    all_atom = Path(sol.ca_model_path.replace("_ca_model.pdb", "_all_atom_model.pdb"))
+    assert all_atom.exists() == pulchra == ("run_pulchra" in sol.time_cost)
+    assert ("phenix_refine" in sol.time_cost) == phenix_too
+    if pulchra:
+        atoms = pdb_io.parse_pdb(all_atom)
+        n_ca = len(pdb_io.select(pdb_io.parse_pdb(sol.ca_model_path), name="CA"))
+        assert n_ca > 0.6 * len(ca)
+        for name in ("N", "CA", "C", "O"):
+            assert (atoms["name"] == name).sum() == n_ca, name
+        assert np.isfinite(pdb_io.coords(atoms)).all()
+    if phenix_too:
+        assert sol.phenix_command.startswith("source  && cd ")
+        assert f"phenix.real_space_refine {all_atom} " in sol.phenix_command
+    else:
+        assert sol.phenix_command is None
 
 
 def test_cli_flags_are_the_reference_flags():
