@@ -68,7 +68,21 @@ Phases, each printing what it found; any failure ends the run non-zero:
      (cosine >= 0.9999), two ``Trainer`` steps and ``cli.train --dtype
      float32`` for one epoch, at base 64 on a 16^3 map (about half a
      minute);
-  8. the scripts: K11 and K12 in each of ``distill_ew_crash``'s ten
+  8. the learned phase (``learned_path``, about seven minutes):
+     ``cli.makedata`` in this process on 8 synthetic (map, model) pairs at
+     144^3, the fixture's base-16 bf16 training on those windows
+     (``mica_tpu_torch.scripts.train_synth_fixture``: batch 8, lr 3e-4,
+     ``LEARNED_STEPS``) with its launches a step (K1 only where
+     ``k1_takes`` accepts the widths) and a falling loss, the weights kept
+     by their validation Dice, their held-out backbone Dice against the
+     initial weights' (gain >= 0.1), then on the last step's weights a profile
+     of one base-16 step, a base-16 forward's launches (K1/K2 5, K3 3, K8
+     1) within 0.1 of the f32 CPU, ``cli.predict`` on the exported
+     original-format ``.pth`` and on a one-epoch ``cli.train`` ``.pt``,
+     and the synthetic demo's ``cli.run --run_pulchra`` on the learned
+     weights: the CA and all-atom models, coverage of the true chain at
+     or above ``DEMO_COVERAGE_FLOOR``;
+  9. the scripts: K11 and K12 in each of ``distill_ew_crash``'s ten
      variants at its shapes (K11 to the bit, K12 within 1e-5 of the terms'
      magnitudes) and K13 at the layout probe's, to the bit in both
      layouts, at an unaligned start and with a tail, each timed beside its
@@ -684,6 +698,133 @@ def check_k8(torch, F, g, detail):
         torch.cuda.empty_cache()
     detail["stem9"] = rows
     return rows
+
+
+# The learned phase's kernel shapes: its training steps and held-out
+# evaluation at batch 8 x 64^3, its forward check at 2 x 32^3, at base 16
+LEARNED_BASE = 16
+LEARNED_SHAPES = ((BATCH, WIN, WIN, WIN), (2, 32, 32, 32))
+
+
+def check_learned_sites(torch, conv3d_in, depthwise, g, detail) -> dict:
+    """Each kernel of the learned phase at its base-16 sites, against the
+    plain versions and tolerances of the base-64 rows: K1 (statistics on)
+    at the sites K1 takes, and as the dx conv of each; K2, K4, K5 and K6 at
+    those sites' Co; K3 forward and dx and K7 at the DualAttention widths
+    16, 32 and 64; K8 at C 32.  K1, K2, K3 and K8 at both shapes, the
+    training kernels at the training shape.  Correctness only, no timing.
+    Returns {kernel: [max_abs_err of each site]}."""
+    from mica_tpu_torch.ops import stem
+
+    errs, rows = {}, []
+    rnd = lambda shape: torch.randn(*shape, device="cuda", generator=g)  # noqa: E731
+
+    def held(name, site, shape, err, tol):
+        """``tol``: the bound on ``err``, or the text of a bound checked before."""
+        where = "x".join(map(str, shape))
+        fail_if(not isinstance(tol, str) and not err <= tol,
+                f"{name} {site} at {where} (base {LEARNED_BASE}): err {err} > {tol}")
+        errs.setdefault(name, []).append(err)
+        rows.append(dict(kernel=name, site=site, shape=where, max_abs_err=err,
+                         tol=tol if isinstance(tol, str) else f"{tol:.3e}"))
+
+    taken = [(cis, co) for cis, co, st in conv3d_in.k1_sites(LEARNED_BASE)
+             if st and conv3d_in.k1_takes(cis, co)]
+    widths = sorted({co for _, co in taken})
+    dw_widths = [LEARNED_BASE * 2 ** i for i in range(3)]
+    for shape in LEARNED_SHAPES:
+        for cis, co in taken:
+            parts = [rnd(shape + (c,)).to(torch.bfloat16) for c in cis]
+            ci = sum(cis)
+            w = rnd((co, ci, 3, 3, 3)) * math.sqrt(2.0 / (27 * (ci + co)))
+            b = rnd((co,)) * 0.1
+            ref, ref_st = conv3d_in.conv3d_plain([p.float() for p in parts],
+                                                 w.to(torch.bfloat16).float(), b)
+            out, st = conv3d_in.conv3d(parts, w, b, with_stats=True)
+            torch.cuda.synchronize()
+            site = f"{cis}->{co}"
+            held("conv3d_stats", site, shape, (out.float() - ref).abs().max().item(),
+                 1e-2 * ref.abs().max().item())
+            s_err = (st - ref_st).abs()
+            abs_sum = ref.abs().sum(dim=(1, 2, 3))
+            fail_if(bool((s_err[:, 0] > 1e-4 * abs_sum + 1e-3).any())
+                    or bool((s_err[:, 1] > 1e-4 * ref_st[:, 1] + 1e-3).any()),
+                    f"K1 {site} at base {LEARNED_BASE}: statistics off by {s_err.max().item()}")
+            del parts, ref, out
+        for c in widths:
+            y = rnd(shape + (c,)).to(torch.bfloat16)
+            mean, scale = rnd((shape[0], c)) * 0.1, torch.rand(
+                shape[0], c, device="cuda", generator=g) * 0.5 + 0.5
+            want = conv3d_in.in_apply_plain(y.float(), mean.to(torch.bfloat16).float(),
+                                             scale.to(torch.bfloat16).float())
+            got = conv3d_in.in_apply(y, mean, scale)
+            held("in_apply", f"C={c}", shape, (got.float() - want).abs().max().item(),
+                 1e-2 * want.abs().max().item())
+        for c in dw_widths:
+            x = rnd(shape + (c,)).to(torch.bfloat16)
+            w, b = rnd((c, 1, 3, 3, 3)) * 0.2, rnd((c,)) * 0.1
+            for form, wt, bt in (("forward", w, b), ("dx", w.flip(2, 3, 4), torch.zeros_like(b))):
+                want = depthwise.depthwise_conv3_plain(x.float(), wt, bt)
+                got = depthwise.depthwise_conv3(x, wt, bt)
+                held("depthwise3", f"{form} C={c}", shape, (got.float() - want).abs().max().item(),
+                     1e-2 * want.abs().max().item())
+        c = 2 * LEARNED_BASE
+        x = rnd(shape).to(torch.bfloat16)
+        ws = [rnd((c // 4, 1, k, k, k)) * k ** -1.5 for k in stem.KS]
+        bias = rnd((c,)) * 0.1
+        packed = stem.pack_weight(ws, torch.bfloat16)
+        want = stem.stem_conv_plain(x.float(), packed.float(), bias)
+        got = stem.stem_conv(x, packed, bias)
+        held("stem9", f"C={c}", shape, (got.float() - want).abs().max().item(),
+             1e-2 * want.abs().max().item())
+        torch.cuda.empty_cache()
+
+    shape, n = LEARNED_SHAPES[0], WIN ** 3
+    for ci, co in sorted({(co, sum(cis)) for cis, co in taken}):
+        dc = rnd(shape + (ci,)).to(torch.bfloat16)
+        w = (rnd((ci, co, 3, 3, 3)) * math.sqrt(2.0 / (27 * (ci + co)))).flip(2, 3, 4).transpose(0, 1)
+        want, _ = conv3d_in.conv3d_plain([dc.float()], w.to(torch.bfloat16).float(), None, False)
+        out, _ = conv3d_in.conv3d([dc], w, None, with_stats=False)
+        held("conv3d_stats", f"dx {ci}->{co}", shape, (out.float() - want).abs().max().item(),
+             1e-2 * want.abs().max().item())
+    for c in widths:
+        x = rnd(shape + (c,)).to(torch.bfloat16)
+        mean = _bf16_table(torch, g, c, -0.1, 0.1)
+        scale = _bf16_table(torch, g, c, 0.5, 1.5)
+        want_y, want_xh = conv3d_in.in_apply_ad_plain(
+            x.float(), mean.to(torch.bfloat16).float(), scale.to(torch.bfloat16).float())
+        y, xh = conv3d_in.in_apply_ad(x.clone(), mean, scale)
+        held("in_apply_ad", f"C={c}", shape, max((y.float() - want_y).abs().max().item(),
+                                                  (xh.float() - want_xh).abs().max().item()),
+             1e-2 * want_xh.abs().max().item())
+        dy = rnd(shape + (c,)).to(torch.bfloat16)
+        st = conv3d_in.in_bwd_stats(xh, dy)
+        want = conv3d_in.in_bwd_stats_plain(xh, dy)
+        mag = conv3d_in.in_bwd_stats_plain(xh.abs(), dy.abs())
+        excess = ((st - want).abs() - 1e-5 * mag).max().item()
+        fail_if(not excess <= 1e-3, f"K5 C={c} at base {LEARNED_BASE}: beyond 1e-5 of the "
+                "magnitudes")
+        held("in_bwd_stats", f"C={c}", shape, (st - want).abs().max().item(),
+             "1e-5 of sum |g|, sum |g x^|")
+        m1, m2 = st[:, 0] / n, st[:, 1] / n
+        scale = _bf16_table(torch, g, c, 0.5, 1.5)
+        dc = conv3d_in.in_bwd_apply(xh, dy, m1, m2, scale)
+        r = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+        want6 = conv3d_in.in_bwd_apply_plain(xh.float(), dy.float(), r(m1), r(m2), r(scale))
+        held("in_bwd_apply", f"C={c}", shape, (dc.float() - want6).abs().max().item(),
+             2e-2 * want6.abs().max().item())
+        del x, y, xh, dy, dc, want_y, want_xh, want6
+    for c in dw_widths:
+        x = rnd(shape + (c,)).to(torch.bfloat16)
+        gr = rnd(shape + (c,)).to(torch.bfloat16)
+        held("depthwise3_grads", f"C={c}", shape, _k7_held(torch, depthwise, x, gr, f"C={c}"),
+             "1e-5 of sum |x g| per tap, bitwise repeat")
+    torch.cuda.empty_cache()
+    for r in rows:
+        print(f"learned site {r['kernel']} {r['site']} at {r['shape']}: max_abs_err "
+              f"{r['max_abs_err']:.3e} (tol {r['tol']})", flush=True)
+    detail["learned_sites"] = rows
+    return errs
 
 
 def host_ms(torch, fn, reps: int = 200) -> float:
@@ -1416,9 +1557,9 @@ def gradient_reference(torch, seed, trained_state, detail):
           f"seed's weights, {GRAD_TRAINED_MIN} (whole) at the trained weights", flush=True)
 
 
-def profile_train_step(torch, trainer, state, batch, detail):
+def profile_train_step(torch, trainer, state, batch, detail, key="train_profile"):
     """Where one training step's device time goes: kernel times and the
-    step's device span, both from one profiled step."""
+    step's device span, both from one profiled step, kept under ``key``."""
     from torch.profiler import ProfilerActivity, profile
 
     from mica_tpu_torch.train.loss import task_lambdas
@@ -1441,7 +1582,8 @@ def profile_train_step(torch, trainer, state, batch, detail):
     shares = {k: sum(v for n, v in per_kernel.items() if pat in n)
               for k, pat in TRAIN_KERNELS.items()}
     shares["other kernels"] = busy - sum(shares.values())
-    print(f"profile of one training step: device span {span:.3f} ms, kernel time "
+    print(f"profile of one training step (base {trainer.model.base}): device span "
+          f"{span:.3f} ms, kernel time "
           f"{busy:.3f} ms" + (f", idle share {1 - busy / span:.3f}" if busy else
                               ": profiler saw no device time (not measured)"), flush=True)
     for label, v in shares.items():
@@ -1449,8 +1591,8 @@ def profile_train_step(torch, trainer, state, batch, detail):
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
     for name, v in top:
         print(f"  {v:9.3f} ms  {name[:100]}", flush=True)
-    detail["train_profile"] = dict(span_ms=span, kernel_ms=busy, shares_ms=shares,
-                                   top=[[n[:200], v] for n, v in top])
+    detail[key] = dict(span_ms=span, kernel_ms=busy, shares_ms=shares,
+                       top=[[n[:200], v] for n, v in top])
 
 
 F32_MAP, F32_CORE = 16, 16    # the f32 phase's map (voxels an axis) and window core
@@ -1612,6 +1754,259 @@ def f32_path(torch, args, detail):
     torch.cuda.empty_cache()
     detail["f32"] = dict(max_abs_dp=res, cpu_s=cpu_s, card_s=card_s, cli_predict_s=cli_s,
                          gradient_cosine=whole, trainer_losses=losses, cli_train_val_loss=val)
+
+
+# The learned phase: the fixture's training (``scripts/train_synth_fixture``:
+# base 16, bf16, batch 8, 144^3 scenarios of 170 residues, lr 3e-4) for
+# LEARNED_STEPS of its 1200 steps, on LEARNED_SCENARIOS of its 8 scenarios,
+# keeping the weights with the best mean validation backbone Dice
+# (LEARNED_VAL scenarios, seeds 54321 on, measured every
+# LEARNED_SELECT_EVERY steps).  The held-out backbone Dice is that of the
+# kept weights, the mean over LEARNED_HELD_OUT 96^3 scenarios (seeds 12345
+# on; the JAX script takes the first alone).  The Dice (P > 0.5) of one
+# step's weights wanders: on the card it rose from < 0.01 at step 400 to
+# 0.08-0.15 at step 600 in four runs of the same code, fell to 0.07-0.09
+# over steps 700-900 as the task weights left the backbone, and came back
+# to 0.12-0.18 by 1000-1200 (PERF.md); the training is not bitwise
+# repeatable (K1's statistics, cuDNN), so no single step is safe.  The
+# demo runs on the last step's weights, as the fixture exports them: on
+# the kept weights of two runs (steps 950 and 1100) it covered 0.84 and
+# 0 of the chain, on the last step's of five runs 0.98-1.00 (PERF.md).
+LEARNED_STEPS = 1200
+LEARNED_SCENARIOS = 8
+LEARNED_HELD_OUT = 4
+LEARNED_VAL = 4
+LEARNED_SELECT_EVERY = 50
+DICE_GAIN_MIN = 0.1         # held-out backbone Dice over the initial weights'
+# the demo's CA coverage (< 3 A) on this phase's weights: the floor PERF.md
+# records from this phase's first card run (1.000 there; the fixture's
+# full run 0.990)
+DEMO_COVERAGE_FLOOR = 0.9
+# launches at base 16, where K1 takes 5 of the 13 sites (PERF.md): a
+# training step (recomputation on) and an inference forward
+LEARNED_PER_STEP = {"conv3d_stats": 13, "in_apply_ad": 8, "in_bwd_stats": 5, "in_bwd_apply": 5,
+                    "depthwise3": 9, "depthwise3_grads": 3}
+LEARNED_PER_FORWARD = {"conv3d_stats": 5, "in_apply": 5, "depthwise3": 3, "stem9": 1}
+
+
+def batching_ab(torch, fx, trainer, state, ds, batch_iterator, batch: int,
+                steps: int = 8) -> dict:
+    """ms a step of the fixture's batches gathered on the card against
+    ``batch_iterator``'s host batches, which the trainer copies over: runs
+    of ``steps`` in turns (host, card, card, host), after the gated
+    training."""
+    arrays = fx.to_device(ds, trainer.device)
+    kinds = {"host": lambda e: batch_iterator(ds, batch, seed=e),
+             "card": lambda e: fx.device_batches(arrays, batch, e)}
+    lambdas, times = (1.0 / 3,) * 3, {"host": [], "card": []}
+    for turn, kind in enumerate(("host", "card", "card", "host")):
+        batches = kinds[kind](turn)
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(steps):
+            trainer.train_step(state, next(batches), lambdas, 0.01)
+        torch.cuda.synchronize()
+        times[kind].append(1e3 * (time.time() - t) / steps)
+    ms = {k: ", ".join(f"{t:.3f}" for t in v) for k, v in times.items()}
+    print(f"  batching in turns ({steps} steps a run): host batches through the trainer "
+          f"{ms['host']} ms a step, gathered on the card {ms['card']}", flush=True)
+    return times
+
+
+def learned_path(torch, args, detail):
+    """Training data from (map, model) pairs, a base-16 MICA trained on the
+    card, its checkpoints through the CLIs and the synthetic demo on its
+    weights.  Returns the launch counts of the training run."""
+    from mica_tpu_torch.cli import makedata
+    from mica_tpu_torch.cli import predict as cli_predict
+    from mica_tpu_torch.cli import train as cli_train
+    from mica_tpu_torch.infer.engine import postprocess_logits
+    from mica_tpu_torch.infer.pipeline import predict_map
+    from mica_tpu_torch.io import mrc as mrc_io
+    from mica_tpu_torch.io import pdb as pdb_io
+    from mica_tpu_torch.models.mica import MICA
+    from mica_tpu_torch.ops import conv3d_in
+    from mica_tpu_torch.scripts import synthetic_demo as demo
+    from mica_tpu_torch.scripts import train_synth_fixture as fx
+    from mica_tpu_torch.train.data import ArrayDataset, batch_iterator
+    from mica_tpu_torch.train.trainer import Trainer
+
+    base, bf16 = LEARNED_BASE, torch.bfloat16
+    fixture = fx.build_parser().parse_args([])
+    shape = (fixture.shape,) * 3
+    print(f"learned phase: the fixture's training (base {base}, bf16, batch {fixture.batch}, "
+          f"{fixture.shape}^3 scenarios of {fixture.n_res} residues, lr {fixture.lr}) for "
+          f"{LEARNED_STEPS} of its {fixture.steps} steps on {LEARNED_SCENARIOS} of its "
+          f"{fixture.n_scenarios} scenarios", flush=True)
+    out, t_phase = {}, time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        # data: cli.makedata in this process over the scenarios' (map, model) pairs
+        pairs = [fx.write_scenario(seed, shape, fixture.n_res, root / "pairs")
+                 for seed in range(LEARNED_SCENARIOS)]
+        (root / "pairs.csv").write_text("".join(f"{m},{p}\n" for m, p in pairs))
+        t0 = time.time()
+        rc = makedata.main(["--pairs", str(root / "pairs.csv"), "--output", str(root / "packed")])
+        data_s = time.time() - t0
+        fail_if(rc != 0, f"cli.makedata exited {rc}")
+        packs = sorted((root / "packed").glob("*.npz"))
+        fail_if(len(packs) != LEARNED_SCENARIOS, f"cli.makedata wrote {len(packs)} files")
+        ds = fx.concat([ArrayDataset.load(str(p)) for p in packs])
+        print(f"  cli.makedata: {len(ds)} windows of 64^3 from {len(packs)} pairs in "
+              f"{data_s:.3f} s ({data_s / len(packs):.3f} s a pair)", flush=True)
+
+        # training, launches read over the run alone
+        trainer = Trainer(base_filters=base, lr=fixture.lr, dtype=bf16, seed=args.seed)
+        state = trainer.init_state()
+        held_outs = [fx.held_out(seed=fx.EVAL_SEED + i) for i in range(LEARNED_HELD_OUT)]
+        held = held_outs[0]
+        val = [fx.held_out(seed=fx.VAL_SEED + i) for i in range(LEARNED_VAL)]
+        select = fx.Selection(trainer, base, bf16, "cuda", val, LEARNED_SELECT_EVERY)
+        init = fx.evaluate(fx.state_dict_of(trainer), base, bf16, "cuda", held_outs)
+        aside = dict.fromkeys(_read_counts(), 0)
+
+        def select_aside(step):
+            # the selection's forwards are left out of the training's launches
+            before = _read_counts()
+            select(step)
+            for k, v in _read_counts().items():
+                aside[k] += v - before[k]
+
+        _reset_counts()
+        res = fx.train(trainer, state, ds, LEARNED_STEPS, fixture.batch, log_every=100,
+                       on_step=select_aside)
+        counts = {k: v - aside[k] for k, v in _read_counts().items()}
+        t0 = time.time()
+        select.measure(LEARNED_STEPS)
+        kept, val_dice, kept_sd = select.best
+        select_s = res["aside_s"] + time.time() - t0
+        losses = res["losses"]
+        first, last = float(losses[:50].mean()), float(losses[-50:].mean())
+        per_step = {k: counts[k] / LEARNED_STEPS for k in TRAIN_KERNELS}
+        want = LEARNED_PER_STEP
+        print(f"  training: {LEARNED_STEPS} steps ({res['epochs']} epochs), first step "
+              f"{res['first_step_s']:.3f} s, then {1e3 * res['step_s']:.3f} ms a step; loss "
+              f"{first:.4f} over the first 50 steps, {last:.4f} over the last 50", flush=True)
+        print(f"  launches per step {json.dumps(per_step)} (expected {json.dumps(want)})",
+              flush=True)
+        fail_if(not np.isfinite(losses).all(), "a training loss is not finite")
+        fail_if(not last < first, f"the loss did not fall: {first} -> {last}")
+        for k, v in want.items():
+            fail_if(per_step[k] != v, f"{k}: {per_step[k]} launches a step, expected {v}")
+        for k in ("in_apply", "stem9", "gather_windows", "scatter_cores"):
+            fail_if(counts[k] != 0, f"training launched the inference-only {k}")
+        print(f"  validation backbone Dice, mean of {LEARNED_VAL} 96^3 scenarios (seeds "
+              f"{fx.VAL_SEED}-{fx.VAL_SEED + LEARNED_VAL - 1}), by step: "
+              + ", ".join(f"{n} {b:.4f}" for n, b in select.curve)
+              + f"; kept step {kept} ({val_dice:.4f}); {len(select.curve)} measurements "
+              f"in {select_s:.3f} s", flush=True)
+        # the gate reads the kept weights; the exported .pth holds the last
+        # step's, as the fixture exports them, and the forward check, the
+        # CLIs and the demo run on it
+        sd = fx.state_dict_of(trainer)
+        last_dice = fx.evaluate(sd, base, bf16, "cuda", held_outs)
+        trained = fx.evaluate(kept_sd, base, bf16, "cuda", held_outs)
+        gain = trained["backbone"] - init["backbone"]
+        each = ", ".join(f"{b:.4f}" for b, _ in trained["each"])
+        print(f"  held-out Dice, mean of {LEARNED_HELD_OUT} 96^3 scenarios (seeds "
+              f"{fx.EVAL_SEED}-{fx.EVAL_SEED + LEARNED_HELD_OUT - 1}), of the kept weights: "
+              f"backbone {trained['backbone']:.4f} (each {each}) CA {trained['ca']:.4f}; at "
+              f"the initial weights backbone {init['backbone']:.4f} CA {init['ca']:.4f}: gain "
+              f"{gain:.4f} (>= {DICE_GAIN_MIN}); the last step's weights backbone "
+              f"{last_dice['backbone']:.4f} CA {last_dice['ca']:.4f}", flush=True)
+        fail_if(not gain >= DICE_GAIN_MIN, f"held-out backbone Dice gained {gain}")
+        batch = next(batch_iterator(ds, fixture.batch, seed=0))
+        profile_train_step(torch, trainer, state, batch, detail, key="learned_train_profile")
+        batching = batching_ab(torch, fx, trainer, state, ds, batch_iterator, fixture.batch)
+        del trainer, state, batch
+
+        # inference at base 16 on the card: launches of one forward, and the
+        # same weights in f32 on the CPU
+        x = torch.from_numpy(np.stack([held["density"][:32, :32, :32],
+                                       held["density"][40:72, 40:72, 40:72]]))[..., None]
+        af = torch.from_numpy(np.stack([np.zeros((32, 32, 32, 24), np.float32),
+                                        np.moveaxis(held["af3"][:, 40:72, 40:72, 40:72], 0, -1)]))
+        card = MICA(base=base, dtype=bf16)
+        card.load_state_dict(sd)
+        card.cuda().eval()
+        cpu = MICA(base=base, dtype=torch.float32)
+        cpu.load_state_dict(sd)
+        _reset_counts()
+        with torch.no_grad():
+            got = postprocess_logits(*card(x.cuda(), af.cuda()))
+        torch.cuda.synchronize()
+        fwd = _read_counts()
+        with torch.no_grad():
+            ref = postprocess_logits(*cpu(x, af))
+        errs = [(g.cpu() - w).abs().max().item() for g, w in zip(got, ref)]
+        taken = sum(conv3d_in.k1_takes(cis, co) for cis, co, _ in conv3d_in.k1_sites(base))
+        print(f"  inference (2 x 32^3, the last step's weights): launches {json.dumps(fwd)}; "
+              f"k1_takes "
+              f"accepts {taken} of 13 sites; max |dP| to the f32 CPU bb {errs[0]:.3e} ca "
+              f"{errs[1]:.3e} aa {errs[2]:.3e} (tol 0.1)", flush=True)
+        for k, v in fwd.items():
+            fail_if(v != LEARNED_PER_FORWARD.get(k, 0),
+                    f"{k}: {v} launches a forward at base {base}")
+        fail_if(max(errs) > 0.1, f"base-{base} card vs CPU differs by {max(errs)}")
+
+        # checkpoints through the CLIs: the exported .pth and a cli.train .pt
+        pth = root / "fixture.pth"
+        fx.export_pth(pth, sd, res["epochs"], last)
+        rc = cli_train.main(["--data_path", str(packs[0]), "--output_path", str(root / "ck"),
+                             "--batch_size", "4", "--num_epochs", "1", "--base_filters",
+                             str(base), "--log_dir", str(root / "logs"), "--seed", str(args.seed)])
+        fail_if(rc != 0, f"cli.train exited {rc}")
+        (pt,) = sorted((root / "ck").glob("mica_epoch_0*.pt"))
+        held_map = root / "heldout.mrc"
+        mrc_io.write_mrc(held_map, np.transpose(held["density"], (2, 1, 0)), voxel_size=1.0)
+        ckpt = {"pth": (pth, sd),
+                "pt": (pt, torch.load(pt, map_location="cpu", weights_only=True)["model"])}
+        for name, (path, weights) in ckpt.items():
+            dest = root / f"predict_{name}"
+            rc = cli_predict.main(["-m", str(held_map), "-o", str(dest), "--model_checkpoint",
+                                   str(path), "--base_filters", str(base)])
+            fail_if(rc != 0, f"cli.predict on the {name} exited {rc}")
+            bb = mrc_io.read_mrc(dest / "backbone_probability.mrc").to_xyz()[0]
+            ref = predict_map(str(held_map), weights, batch_size=8, dtype=bf16,
+                              base_filters=base)["backbone_probability"]
+            d = float(np.abs(bb - ref).max())
+            print(f"  cli.predict --model_checkpoint {path.name}: volumes {bb.shape}, finite, "
+                  f"within {d:.3e} of predict_map on the checkpoint's weights (tol 0.05)",
+                  flush=True)
+            fail_if(bb.shape != held["density"].shape or not np.isfinite(bb).all(),
+                    f"cli.predict on the {name}: volume {bb.shape}")
+            fail_if(d > 0.05, f"cli.predict on the {name} differs from predict_map by {d}")
+
+        # the demo: cli.run --run_pulchra on this phase's weights
+        r = demo.run(demo.build_parser().parse_args(["--model_path", str(pth),
+                                                     "--out", str(root / "demo")]))
+        atoms = pdb_io.parse_pdb(r["all_atom_model"])
+        ca = pdb_io.parse_pdb(r["ca_model"])
+        fail_if(len(atoms) == 0 or not np.isfinite(pdb_io.coords(atoms)).all(),
+                "the demo's all-atom model is empty or not finite")
+        names = {}
+        for at in atoms:
+            names.setdefault((str(at["chain"]), int(at["res_id"])), set()).add(str(at["name"]))
+        fail_if(any(not {"N", "CA", "C", "O"} <= v for v in names.values()),
+                "an all-atom residue lacks its backbone")
+        print(f"  demo (cli.run --run_pulchra, 96^3, 100 residues): CA model {len(ca)} atoms, "
+              f"all-atom model {len(atoms)} atoms in {len(names)} residues; coverage (< 3 A) "
+              f"{r['coverage']:.4f} (>= {DEMO_COVERAGE_FLOOR}), median distance "
+              f"{r['median']:.4f} A; cli.run wall "
+              f"{r['wall_s']:.3f} s, stages {json.dumps(r['stages'])}", flush=True)
+        fail_if(not r["coverage"] >= DEMO_COVERAGE_FLOOR,
+                f"demo coverage {r['coverage']} < {DEMO_COVERAGE_FLOOR}")
+        out = dict(windows=len(ds), makedata_s=data_s, steps=LEARNED_STEPS,
+                   scenarios=LEARNED_SCENARIOS, step_ms=1e3 * res["step_s"],
+                   first_step_s=res["first_step_s"], loss_first50=first, loss_last50=last,
+                   launches_per_step=per_step, dice=trained, init_dice=init,
+                   last_step_dice=last_dice, kept_step=kept, val_curve=select.curve,
+                   select_s=select_s,
+                   forward_launches=fwd, max_abs_dp=errs, demo=r, batching_ms=batching)
+    out["phase_s"] = time.time() - t_phase
+    print(f"learned phase: {out['phase_s']:.1f} s", flush=True)
+    detail["learned"] = out
+    return {k: counts[k] for k in TRAIN_KERNELS}
 
 
 def check_scripts_kernels(torch, g, detail):
@@ -1816,6 +2211,7 @@ def main() -> int:
     rows["in_bwd_stats"], rows["in_bwd_apply"] = check_k5_k6(torch, conv3d_in, g, detail)
     rows["depthwise3_grads"] = check_k7(torch, depthwise, g, detail)
     rows["stem9"] = check_k8(torch, F, g, detail)
+    learned_errs = check_learned_sites(torch, conv3d_in, depthwise, g, detail)
     rows["gather_windows"], rows["scatter_cores"] = check_k9_k10(torch, g, args.seed, detail)
     torch.backends.cudnn.allow_tf32 = True
     torch.cuda.empty_cache()
@@ -1842,6 +2238,10 @@ def main() -> int:
     f32_path(torch, args, detail)
     out.write_text(json.dumps(detail, indent=1))
 
+    learned_launches = learned_path(torch, args, detail)
+    torch.cuda.empty_cache()
+    out.write_text(json.dumps(detail, indent=1))
+
     torch.backends.cudnn.allow_tf32 = False
     rows["rows_ew"], rows["masked_sq_stats"], rows["scale2"] = check_scripts_kernels(
         torch, g, detail)
@@ -1859,7 +2259,8 @@ def main() -> int:
                     else "bytes")
         return dict(name=name, route=route, source=source, replaces=replaces,
                     launches=launches[name],
-                    max_abs_err=max(r["max_abs_err"] for r in rows[name]),
+                    max_abs_err=max([r["max_abs_err"] for r in rows[name]]
+                                    + learned_errs.get(name, [])),
                     ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
                     bound_by=bound_by, library_ms=tot("library_ms"))
 
@@ -1906,7 +2307,8 @@ def main() -> int:
     ]
     detail["kernels"] = kernels
     detail["launches"] = {"predict": predict_launches, "model": model_launches,
-                          "train": train_launches, "scripts": script_launches}
+                          "train": train_launches, "learned": learned_launches,
+                          "scripts": script_launches}
     out.write_text(json.dumps(detail, indent=1))
 
     print(json.dumps({"kernels": kernels}), flush=True)

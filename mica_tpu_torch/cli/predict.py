@@ -22,7 +22,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--docked_model", default="",
                    help="docked AF3 model (single-map mode only)")
     p.add_argument("--model_checkpoint", default="",
-                   help="original-format .pth checkpoint; random weights if empty")
+                   help="network checkpoint: an original-format .pth or a cli.train "
+                        ".pt (models.convert.load_checkpoint); random weights if empty")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--base_filters", type=int, default=64,
                    help="network width (MICA: 64)")
@@ -59,8 +60,6 @@ def main(argv=None) -> int:
                 "docked models individually")
 
     if args.model_checkpoint:
-        if not args.model_checkpoint.endswith(".pth"):
-            p.error("the PyTorch port reads original-format .pth checkpoints")
         params = load_checkpoint(args.model_checkpoint)
     else:
         logging.warning("no checkpoint given; using random weights (seed 0)")

@@ -32,7 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-r", "--resolution", type=float, default=3.0)
     p.add_argument("--model_path", "--model_checkpoint",
                    dest="model_checkpoint", default="",
-                   help="MICA network checkpoint (original-format .pth)")
+                   help="MICA network checkpoint (an original-format .pth or a "
+                        "cli.train .pt)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     p.add_argument("--float32", action="store_true",
                    help="run the network in float32 instead of bfloat16 (library "
@@ -88,11 +89,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_network_params(checkpoint: str):
+    """The network's state dict from any layout ``models.convert.
+    load_checkpoint`` takes, or None without a checkpoint."""
     if not checkpoint:
         return None
-    if not checkpoint.endswith(".pth"):
-        raise ValueError("the PyTorch port reads original-format .pth checkpoints, "
-                         f"got {checkpoint!r}")
     from ..models.convert import load_checkpoint
 
     return load_checkpoint(checkpoint)

@@ -90,10 +90,29 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """Original-format ``.pth`` -> state dict: takes ``model_state_dict``
-    where present and strips the ``module.`` prefix a ``DataParallel``
-    wrapper leaves."""
+    """A network checkpoint -> state dict (f32, no ``module.`` prefix).
+
+    Takes the three layouts the port meets, whatever the file's name:
+
+      * the original trainer's ``.pth``: the weights under
+        ``model_state_dict``, keys prefixed ``module.`` by ``DataParallel``;
+      * the port trainer's checkpoint (``train.trainer.save_checkpoint``,
+        what ``cli.train`` writes): the weights under ``model``;
+      * a bare state dict.
+
+    Anything else raises ``ValueError`` naming the keys it found."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = ckpt.get("model_state_dict", ckpt)
+    if not isinstance(ckpt, Mapping):
+        raise ValueError(f"{path}: a checkpoint is a dict, got {type(ckpt).__name__}")
+    for key in ("model_state_dict", "model"):
+        if isinstance(ckpt.get(key), Mapping):
+            sd = ckpt[key]
+            break
+    else:
+        sd = ckpt
+    if not sd or not all(isinstance(v, torch.Tensor) for v in sd.values()):
+        raise ValueError(
+            f"{path}: not a network checkpoint (neither 'model_state_dict', 'model' nor a "
+            f"bare state dict of tensors); its keys: {sorted(map(str, ckpt))[:12]}")
     return {(k[len("module."):] if k.startswith("module.") else k): v.float()
             for k, v in sd.items()}

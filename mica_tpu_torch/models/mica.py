@@ -8,11 +8,17 @@ Parameters are f32 and named after the original network's torch keys
 parameter tree's conversion or an original checkpoint.  Compute runs in
 ``dtype`` (bf16 by default) with f32 InstanceNorm statistics.
 
-Kernel routing, in bf16 compute (``kernel_route``):
+Kernel routing, in bf16 compute (``kernel_route``), site by site:
 
-  * every RDB conv1/2/3 and every transition: ``conv3d_in_relu`` (K1 + K2);
-  * the heads' fused conv1 over the three FPN parts: K1, bias and
-    statistics off;
+  * every RDB conv1/2/3 and every transition whose widths K1 takes
+    (``k1_takes``: every part and Co a multiple of 32): ``conv3d_in_relu``
+    (K1 + K2);
+  * the heads' fused conv1 over the three FPN parts, where K1 takes them:
+    K1, bias and statistics off;
+  * a site K1 does not take (at base 16: stage 0's RDB and transition,
+    stage 1's RDB and the heads' conv1) takes the library formulation in
+    bf16, as the JAX package's shape gate sends such a site to XLA's conv
+    (``mica_tpu/ops/wino_pallas.py:831-889``);
   * ``DualAttention``'s local conv: K3;
   * the stem's four Cin=1 convs at inference: K8;
   * the rest (``feat_conv``, FPN laterals and smooths, head conv2,
@@ -23,8 +29,10 @@ In f32 compute every one of those sites takes the library formulation
 the JAX package's f32 takes (``F.conv3d``, grouped for the depthwise,
 then ``instance_norm`` and ReLU), with TF32 off (``exact_f32``): the JAX
 package runs f32 at ``precision="highest"`` and never reaches a Pallas
-kernel in it.  This is a choice by dtype made once a forward, before any
-launch; the kernel wrappers still refuse f32 tensors on the card.
+kernel in it.  The dtype is read once a forward and the widths at each
+site before its launch, from the weights' and parts' shapes; nothing is
+tried and caught.  The kernel wrappers still refuse f32 tensors and
+widths they do not take on the card.
 
 Training (``train=True``) keeps that routing through autograd functions
 with hand-written backward kernels: ``conv3d_in_relu_ad`` (K1 + K4
@@ -51,7 +59,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import stem as stem_ops
-from ..ops.conv3d_in import conv3d, conv3d_in_relu, conv3d_in_relu_ad
+from ..ops.conv3d_in import conv3d, conv3d_in_relu, conv3d_in_relu_ad, k1_takes
 from ..ops.depthwise import depthwise_conv3_ad
 
 # dropout units of one forward: the stem, (RDB, DualAttention, transition)
@@ -203,9 +211,11 @@ def conv_in_relu_library(parts, weight: torch.Tensor, bias: torch.Tensor) -> tor
     return torch.relu(instance_norm(conv_same(x, weight, bias)))
 
 
-def _conv_in_relu(train: bool, kernels: bool):
-    """The conv + IN + ReLU of an RDB or transition site on this route."""
-    if not kernels:
+def _conv_in_relu(train: bool, kernels: bool, parts, weight: torch.Tensor):
+    """The conv + IN + ReLU of an RDB or transition site on this route: K1
+    and the passes behind it where the route takes kernels and K1 takes the
+    site's widths, the library formulation in the compute dtype otherwise."""
+    if not (kernels and k1_takes([p.shape[-1] for p in parts], weight.shape[0])):
         return conv_in_relu_library
     return conv3d_in_relu_ad if train else conv3d_in_relu
 
@@ -359,11 +369,9 @@ class ResidualDenseBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, rate: float = 0.0, drop: Optional[Dropout] = None,
                 train: bool = False, kernels: bool = True) -> torch.Tensor:
-        fused = _conv_in_relu(train, kernels)
-
         def block(parts, slot):
             conv = slot["0"]
-            h = fused(parts, conv.weight, conv.bias)
+            h = _conv_in_relu(train, kernels, parts, conv.weight)(parts, conv.weight, conv.bias)
             return h if drop is None else drop.channels(h, rate)
 
         x1 = block([x], self.conv1)
@@ -408,7 +416,7 @@ class EncoderStage(nn.Module):
         x = _unit(self.dense_block, x, rate, seeds[0], train, remat, kernels)
         x = _unit(self.dual_attn, x, rate, seeds[1], train, remat, kernels)
         t = self.transition["0"]
-        h = _conv_in_relu(train, kernels)([x], t.weight, t.bias)
+        h = _conv_in_relu(train, kernels, [x], t.weight)([x], t.weight, t.bias)
         return h if seeds[2] is None else Dropout(seeds[2]).channels(h, rate * 0.5)
 
 
@@ -501,7 +509,8 @@ class MICA(nn.Module):
               drop: Optional[Dropout] = None, train: bool = False, kernels: bool = True):
         """The three cascaded heads over one fused 192-out conv1 of the FPN
         parts (K1, no bias, no statistics; a library conv of their concat
-        under training or on the f32 route, as in the JAX package); bb/ca
+        under training, on the f32 route or where K1 does not take the
+        parts' widths, as in the JAX package); bb/ca
         logits (f32) are cast back to the compute dtype for the cascade
         corrections."""
         dt = fpn[0].dtype
@@ -509,10 +518,10 @@ class MICA(nn.Module):
         bb_h, ca_h, aa_h = self.backbone_head, self.ca_head, self.aa_head
         k_big = torch.cat([bb_h.conv1.weight, ca_h.conv1.weight[:, :fpn_ch],
                            aa_h.conv1.weight[:, :fpn_ch]], dim=0)
-        if train or not kernels:
-            big = conv_same(torch.cat(list(fpn), dim=-1), k_big)
-        else:
+        if kernels and not train and k1_takes([p.shape[-1] for p in fpn], k_big.shape[0]):
             big, _ = conv3d(list(fpn), k_big, None, with_stats=False)
+        else:
+            big = conv_same(torch.cat(list(fpn), dim=-1), k_big)
 
         backbone = bb_h.rest(big[..., :64] + bb_h.conv1.bias.to(dt), None, rate, drop)
         bb_f = backbone.to(dt)
@@ -533,7 +542,8 @@ class MICA(nn.Module):
         ``dropout_rate`` > 0 it also drops, drawing one seed per unit from
         ``generator`` (a CPU generator draws them without a device sync).
         The route (kernels in bf16, library ops otherwise) is decided here
-        once, from ``self.dtype``."""
+        once, from ``self.dtype``; each K1 site then checks its widths
+        (``k1_takes``)."""
         dt = self.dtype
         seeds = [None] * _N_UNITS
         if train and dropout_rate > 0.0:

@@ -185,13 +185,21 @@ class K1Plan:
                     kw += self.bk
 
 
+def k1_takes(cis: Sequence[int], co: int) -> bool:
+    """K1's width rule: 1-3 parts, every Ci and Co a positive multiple of
+    32.  A site K1 takes, K1's training dx conv takes too (Co in, sum Ci
+    out).  The model routes the sites it refuses to the library convs."""
+    return (1 <= len(cis) <= 3 and all(c > 0 and c % 32 == 0 for c in cis)
+            and co > 0 and co % 32 == 0)
+
+
 def k1_plan(cis: Sequence[int], co: int, shape: Sequence[int], sm_count: int = 132) -> K1Plan:
     """The tile plan of K1 for parts of channels ``cis``, ``co`` outputs
     and volume ``shape`` (B, D, H, W).  Raises ``ValueError`` for widths the
-    kernel does not take (every Ci and Co a multiple of 32)."""
+    kernel does not take (``k1_takes``)."""
     cis = tuple(int(c) for c in cis)
     b, d, h, w = (int(v) for v in shape)
-    if not 1 <= len(cis) <= 3 or any(c <= 0 or c % 32 for c in cis) or co <= 0 or co % 32:
+    if not k1_takes(cis, co):
         raise ValueError(f"K1 takes 1-3 parts with Ci % 32 == 0 and Co % 32 == 0, got "
                          f"{list(cis)} -> {co}")
     bk = 64 if all(c % 64 == 0 for c in cis) else 32
@@ -266,18 +274,18 @@ def conv3d(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
         if p.device != parts[0].device or p.dtype != _BF16 or not p.is_contiguous():
             raise TypeError("conv3d on the card takes contiguous bf16 operands on "
                             "one device; the model routes f32 to the library convs")
-        if p.dim() != 5 or tuple(p.shape[:4]) != (b, d, h, w) or p.shape[4] % 32:
+        if p.dim() != 5 or tuple(p.shape[:4]) != (b, d, h, w):
             raise ValueError(f"operand shape {tuple(p.shape)}: needs (B,D,H,W,Ci) "
-                             "with a shared (B,D,H,W) and Ci % 32 == 0")
+                             "with a shared (B,D,H,W)")
         if p.data_ptr() % 16:
             raise ValueError("conv3d on the card reads each operand by TMA, which needs "
                              "a 16-byte-aligned address; this operand is not (it is not "
                              "copied)")
     cis = [p.shape[4] for p in parts]
     co = weight.shape[0]
-    if tuple(weight.shape[1:]) != (sum(cis), 3, 3, 3) or co % 32:
-        raise ValueError(f"weight shape {tuple(weight.shape)} for Ci {sum(cis)}; "
-                         "Co must be a multiple of 32")
+    if tuple(weight.shape[1:]) != (sum(cis), 3, 3, 3):
+        raise ValueError(f"weight shape {tuple(weight.shape)} for Ci {sum(cis)}")
+    # the widths K1 takes (``k1_takes``): ``k1_plan`` raises for the others
     plan = k1_plan(cis, co, (b, d, h, w), _build.sm_count(parts[0].device))
     wp = pack_weight(weight.to(parts[0].device))
     bp = None

@@ -1,4 +1,4 @@
-"""Training data (port of ``mica_tpu/train/data.py``, numpy only).
+"""Training data (port of ``mica_tpu/train/data.py``).
 
   * ``NpzGridsDataset``: the reference's on-disk ``Grids`` layout
     (``normalized_maps/<id>/grid_*.npz`` with sibling ``BB_masks``,
@@ -6,11 +6,15 @@
     found by path substitution);
   * ``ArrayDataset``: in-memory windows, saved and loaded as one packed
     ``.npz``;
+  * ``build_training_grids``: windows straight from a (map, model PDB)
+    pair: prepare the map, rasterize the label masks and the AF3
+    encoding, window everything on the device and keep the windows whose
+    density max is >= 0.01 (the filter that defines the original MICA's
+    training set); it replaces the original's shell pipeline;
   * ``train_val_split``, ``batch_iterator`` and ``synthetic_batch``.
 
 Augmentation and AF3 blanking run on the device in the trainer; the
-loader only moves bytes.  Building grids from a (map, model) pair
-(``build_training_grids``) is not ported yet.
+loader only moves bytes.
 """
 
 from __future__ import annotations
@@ -21,8 +25,14 @@ from pathlib import Path
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from ..ops.rasterize import CHANNEL_NAMES
+from ..device import resolve_device
+from ..infer.pipeline import prepare_map
+from ..io import pdb as pdb_io
+from ..ops import masks as mask_ops
+from ..ops.rasterize import CHANNEL_NAMES, rasterize_af3_encoding
+from ..ops.window import extract_windows
 
 Batch = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]
 
@@ -79,6 +89,39 @@ class ArrayDataset:
     def load(cls, path: str) -> "ArrayDataset":
         d = np.load(path)
         return cls(d["density"], d["af3"], d["bb"], d["ca"], d["aa"])
+
+
+def build_training_grids(map_path: str, model_pdb_path: str,
+                         docked_af3_pdb_path: Optional[str] = None,
+                         density_threshold: float = 0.01, device=None) -> ArrayDataset:
+    """(density map, deposited model[, docked AF3 model]) -> training
+    windows, the JAX function's (64^3: core 48, halo 8).
+
+    The map is prepared (resampled to 1 A and normalized) on ``device``
+    (None means the card); the masks and the encoding are rasterized on
+    the host; all of them are windowed on ``device``.  Windows are kept
+    where the density window's max is >= ``density_threshold``.  Without
+    an AF3 model the deposited model is the encoding's source too."""
+    dev = resolve_device(device)
+    prepared = prepare_map(map_path, device=dev)
+    geom = dict(origin=prepared.origin, voxel_size=prepared.voxel_size,
+                nstart=prepared.offset)
+    atoms = pdb_io.parse_pdb(model_pdb_path)
+    shape = prepared.volume.shape
+    enc_atoms = (pdb_io.parse_pdb(docked_af3_pdb_path) if docked_af3_pdb_path is not None
+                 else atoms)
+
+    dens_w = extract_windows(torch.from_numpy(prepared.volume).to(dev))
+    keep = dens_w.flatten(1).amax(dim=1) >= density_threshold
+
+    def windows(vol: np.ndarray) -> np.ndarray:
+        return extract_windows(torch.from_numpy(vol).to(dev))[keep].cpu().numpy()
+
+    bb, ca, aa = (windows(fn(atoms, shape, **geom)) for fn in (
+        mask_ops.backbone_mask, mask_ops.carbon_alpha_mask, mask_ops.amino_acid_mask))
+    # the nearest-voxel encoding is binary: uint8 moves a quarter of the bytes
+    af3 = windows(rasterize_af3_encoding(enc_atoms, shape, **geom).astype(np.uint8))
+    return ArrayDataset(density=dens_w[keep].cpu().numpy(), af3=af3, bb=bb, ca=ca, aa=aa)
 
 
 def train_val_split(n: int, val_fraction: float = 0.2,

@@ -635,3 +635,55 @@ def test_scale2_refuses_what_it_would_have_to_copy(gen):
     assert scale.launches["scale2"] == before
     assert torch.equal(scale.scale2(x.permute(1, 2, 3, 0, 4).contiguous()),
                        scale.scale2_plain(x).permute(1, 2, 3, 0, 4))
+
+
+def test_predict_volume_base16_bf16_takes_k1_where_it_takes_the_widths(gen):
+    """bf16 at base 16 on the card: K1 and K2 launch at the 5 of a
+    forward's 13 sites whose widths K1 takes (``k1_takes``), K3 at 3, K8
+    once, and the probabilities stay within 0.1 of the f32 CPU's."""
+    import numpy as np
+
+    from mica_tpu_torch.infer import engine
+    from mica_tpu_torch.models.mica import MICA
+    from mica_tpu_torch.ops import conv3d_in, depthwise, stem
+
+    rng = np.random.default_rng(5)
+    vol = rng.random((40, 30, 20)).astype(np.float32)
+    af = (rng.random((24, 40, 30, 20)) < 0.03).astype(np.float32)
+    sd = MICA(base=16).init_weights(torch.Generator().manual_seed(0)).state_dict()
+    taken = sum(conv3d_in.k1_takes(cis, co) for cis, co, _ in conv3d_in.k1_sites(16))
+    assert taken == 5
+    pred = engine.SlidingWindowPredictor(sd, batch_size=2, base_filters=16, core=16, halo=8)
+    before = dict(conv3d_in.launches, **depthwise.launches, **stem.launches)
+    got = pred.predict_volume(vol, af)
+    fw = pred.timing["n_forwards"]
+    after = dict(conv3d_in.launches, **depthwise.launches, **stem.launches)
+    assert {k: after[k] - before[k] for k in ("conv3d_stats", "in_apply", "depthwise3",
+                                              "stem9")} == {
+        "conv3d_stats": 5 * fw, "in_apply": 5 * fw, "depthwise3": 3 * fw, "stem9": fw}
+    want = engine.SlidingWindowPredictor(sd, batch_size=2, dtype=torch.float32,
+                                         base_filters=16, core=16, halo=8,
+                                         device="cpu").predict_volume(vol, af)
+    for k in ("backbone_probability", "carbon_alpha_probability", "amino_acid_probability"):
+        assert np.isfinite(got[k]).all() and np.abs(got[k] - want[k]).max() <= 0.1, k
+
+
+def test_trainer_step_base16_bf16_on_the_card(gen):
+    """A base-16 bf16 ``Trainer`` step on the card: finite, and K1 launches
+    only at the sites it takes (5 forward, 3 recomputed RDB sites, 5 dx),
+    with K4 at 8 and K5, K6 at 5."""
+    import numpy as np
+
+    from mica_tpu_torch.ops import conv3d_in
+    from mica_tpu_torch.train.data import synthetic_batch
+    from mica_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(base_filters=16, seed=1)
+    state = tr.init_state()
+    batch = synthetic_batch(2, 32, seed=3)
+    before = dict(conv3d_in.launches)
+    met = tr.train_step(state, batch, (1.0, 1.0, 1.0), 0.01)
+    assert np.isfinite(float(met["total_loss"]))
+    assert {k: conv3d_in.launches[k] - before[k] for k in before} == {
+        "conv3d_stats": 13, "in_apply": 0, "in_apply_ad": 8, "in_bwd_stats": 5,
+        "in_bwd_apply": 5}

@@ -69,12 +69,13 @@ def test_model_takes_the_kernels_in_bf16_and_the_library_in_f32(calls, dtype, tr
     if dtype == torch.float32:
         assert calls == {}
     elif train:
-        # 12 RDB/transition sites, 3 depthwise; the heads' conv1 and the
-        # stem are library convs under training, as in the JAX package
-        assert calls == {"conv3d_in_relu_ad": 12, "depthwise_conv3_ad": 3}
+        # the 5 RDB/transition sites whose widths K1 takes at base 16
+        # (``k1_takes``), 3 depthwise; the heads' conv1 and the stem are
+        # library convs under training, as in the JAX package
+        assert calls == {"conv3d_in_relu_ad": 5, "depthwise_conv3_ad": 3}
     else:
-        assert calls == {"conv3d_in_relu": 12, "depthwise_conv3_ad": 3, "conv3d": 1,
-                         "stem_conv": 1}
+        # K1 refuses the heads' three 16-channel parts at base 16
+        assert calls == {"conv3d_in_relu": 5, "depthwise_conv3_ad": 3, "stem_conv": 1}
 
 
 def test_exact_f32_turns_tf32_off_and_restores_it():

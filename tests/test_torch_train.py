@@ -274,9 +274,11 @@ def test_model_value_and_grad_matches_jax(jax_params, jax_value_and_grad, route,
     gradient: the kernel route (forced here; bf16 takes it), whose custom
     backward gives the fused convs' biases a gradient of exactly 0, and
     the library route that f32 takes (``kernel_route``), whose autograd
-    gives them noise, as JAX's does."""
+    gives them noise, as JAX's does.  Forcing the kernel route forces it at
+    every site, whatever K1's width rule (``k1_takes``) says on the card."""
     if route == "kernels":
         monkeypatch.setattr(mica_mod, "kernel_route", lambda dtype: True)
+        monkeypatch.setattr(mica_mod, "k1_takes", lambda cis, co: True)
     x, af, tgt = _grad_inputs()
     lam = jloss.task_lambdas(3)
     l_ref, ref = jax_value_and_grad
@@ -358,11 +360,13 @@ def test_custom_backward_matches_autograd_of_the_plain_forward(monkeypatch):
     ``train=True`` takes: every gradient agrees to 1e-4 relative L2
     (measured 6e-6; the stem's and heads' training-mode casts are
     identities in f32).  The kernel route is forced, since f32 takes the
-    library route by default (``kernel_route``).  The stem has no custom
+    library route by default (``kernel_route``), at every site, whatever
+    K1's width rule (``k1_takes``) says on the card.  The stem has no custom
     backward and takes its training route in both runs: its inference
     route sums the same conv in another order, and the network's gradients
     carry that rounding to 1e-3, which is not what this test is about."""
     monkeypatch.setattr(mica_mod, "kernel_route", lambda dtype: True)
+    monkeypatch.setattr(mica_mod, "k1_takes", lambda cis, co: True)
     x, af, tgt = _grad_inputs(seed=12)
     lam = loss.task_lambdas(0)
     model = MICA(base=BASE, dtype=torch.float32).init_weights(torch.Generator().manual_seed(3))
