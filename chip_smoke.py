@@ -68,7 +68,20 @@ Phases, each printing what it found; any failure ends the run non-zero:
      (cosine >= 0.9999), two ``Trainer`` steps and ``cli.train --dtype
      float32`` for one epoch, at base 64 on a 16^3 map (about half a
      minute);
-  8. the learned phase (``learned_path``, about seven minutes):
+  8. the prep phase (``prep_path``): random Merizo shards from ``--seed``
+     under ``MICA_MERIZO_WEIGHTS``; Merizo on a 1000-residue chain on the
+     card against the CPU (logits within ``MERIZO_TOL``; ms a forward,
+     peak memory, forwards on the card); ``cli.prep af3-results`` on two
+     AF3 models of two chains (one of 520 residues in two domains): every
+     chain converted, domain files inside their chains, Merizo on the card
+     for every chain of >= 50 CAs; ``cli.prep af3-json``; ``cli.prep dock
+     --dry_run`` and its PHENIX commands (PHENIX is not installed);
+  9. the dumps phase (``dumps_path``): ``predict_map`` and ``cli.predict
+     --npz_dir`` at base 64, bf16, on a 96^3 map with empty windows: four
+     files a window, the volumes rebuilt from them equal to the returned
+     and written ones (Dice 1), K9 and K10 once a computed batch; several
+     maps with ``--npz_dir`` refused;
+ 10. the learned phase (``learned_path``, about seven minutes):
      ``cli.makedata`` in this process on 8 synthetic (map, model) pairs at
      144^3, the fixture's base-16 bf16 training on those windows
      (``mica_tpu_torch.scripts.train_synth_fixture``: batch 8, lr 3e-4,
@@ -82,7 +95,7 @@ Phases, each printing what it found; any failure ends the run non-zero:
      and the synthetic demo's ``cli.run --run_pulchra`` on the learned
      weights: the CA and all-atom models, coverage of the true chain at
      or above ``DEMO_COVERAGE_FLOOR``;
-  9. the scripts: K11 and K12 in each of ``distill_ew_crash``'s ten
+ 11. the scripts: K11 and K12 in each of ``distill_ew_crash``'s ten
      variants at its shapes (K11 to the bit, K12 within 1e-5 of the terms'
      magnitudes) and K13 at the layout probe's, to the bit in both
      layouts, at an unaligned start and with a tail, each timed beside its
@@ -1756,6 +1769,357 @@ def f32_path(torch, args, detail):
                          gradient_cosine=whole, trainer_losses=losses, cli_train_val_loss=val)
 
 
+# The prep phase: Merizo on the card and ``cli.prep``'s four preparation
+# steps but the EMDB lookup (it needs the network).
+MERIZO_RES = 1000       # residues of the chain Merizo runs on, card against CPU
+MERIZO_TOL = 1e-3       # card against CPU, mask and background logits (f32, TF32 off)
+PREP_CHAINS = {"fold_a": {"A": (260, 260), "B": (80,)},     # residues per domain
+               "fold_b": {"A": (150,), "B": (40,)}}
+
+
+def helix_chain(n: int, seed: int):
+    """A helix-like CA walk with N and C atoms offset from each CA."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) * (100.0 * np.pi / 180.0)
+    ca = np.stack([2.3 * np.cos(t), 2.3 * np.sin(t), 1.5 * np.arange(n)], 1)
+    ca += rng.normal(0, 0.2, ca.shape)
+    n_xyz = ca + rng.normal([-1.2, 0.3, -0.5], 0.05, ca.shape)
+    c_xyz = ca + rng.normal([1.2, -0.4, 0.4], 0.05, ca.shape)
+    return rng.integers(0, 20, n), n_xyz, ca, c_xyz
+
+
+def write_backbone_cif(path: Path, chains: dict, seed: int) -> None:
+    """An AF3-style mmCIF of chains {id: (n, 3) CA coords}: N, CA, C and O
+    in every residue, random residue types."""
+    from mica_tpu_torch.io.pdb import AMINO_ACIDS
+
+    rng = np.random.default_rng(seed)
+    fields = ("group_PDB id type_symbol label_atom_id label_alt_id label_comp_id "
+              "label_asym_id label_entity_id label_seq_id auth_seq_id auth_asym_id "
+              "Cartn_x Cartn_y Cartn_z occupancy B_iso_or_equiv").split()
+    rows, serial = [], 1
+    for cid, ca in chains.items():
+        for r, xyz in enumerate(ca):
+            res = AMINO_ACIDS[rng.integers(len(AMINO_ACIDS))]
+            for name, ofs in (("N", (-1.2, 0.3, -0.5)), ("CA", (0, 0, 0)),
+                              ("C", (1.2, -0.4, 0.4)), ("O", (2.2, -1.1, 0.2))):
+                x, y, z = np.asarray(xyz) + ofs
+                rows.append(f"ATOM {serial} {name[0]} {name} . {res} {cid} 1 {r + 1} {r + 1} "
+                            f"{cid} {x:.3f} {y:.3f} {z:.3f} 1.00 80.00")
+                serial += 1
+    path.write_text("data_af3\n#\nloop_\n" + "".join(f"_atom_site.{f}\n" for f in fields)
+                    + "\n".join(rows) + "\n#\n")
+
+
+def prep_path(torch, args, detail):
+    """Random Merizo shards from ``--seed`` under ``MICA_MERIZO_WEIGHTS``;
+    Merizo on the card against the CPU on a ``MERIZO_RES``-residue chain;
+    ``cli.prep af3-results`` (Merizo on the card for every chain of >= 50
+    CAs), ``af3-json`` and ``dock --dry_run`` in this process."""
+    import contextlib
+    import io
+
+    from mica_tpu_torch.cli import prep as cli_prep
+    from mica_tpu_torch.io import pdb as pdb_io
+    from mica_tpu_torch.io.mrc import read_mrc, write_mrc
+    from mica_tpu_torch.models import merizo
+    from mica_tpu_torch.utils.synthetic import make_chain
+
+    t_phase, res = time.time(), {}
+    saved_env = os.environ.get("MICA_MERIZO_WEIGHTS")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        torch.manual_seed(args.seed)
+        sd = merizo.Merizo().state_dict()
+        wdir = root / "merizo_weights"
+        wdir.mkdir()
+        keys = list(sd)
+        for i in range(3):
+            torch.save({k: sd[k] for k in keys[i::3]}, wdir / f"weights_part_{i}.pt")
+        os.environ["MICA_MERIZO_WEIGHTS"] = str(wdir)
+        try:
+            # Merizo on the card against its CPU forward
+            aa, n_xyz, ca, c_xyz = helix_chain(MERIZO_RES, args.seed)
+            rot, trans = merizo.gram_schmidt_frames(n_xyz, ca, c_xyz)
+            feats = {"s": np.eye(20, dtype=np.float32)[aa],
+                     "z": np.linalg.norm(ca[:, None] - ca[None], axis=-1).astype(np.float32),
+                     "rot": rot.astype(np.float32), "trans": trans.astype(np.float32),
+                     "ri": np.arange(1, MERIZO_RES + 1, dtype=np.float32), "ca_xyz": ca}
+            card, host = merizo.load_weights(str(wdir)), merizo.load_weights(str(wdir), "cpu")
+            merizo.forwards.update(cuda=0, cpu=0)
+            got = merizo._forward(card, feats)            # the first call: one-off costs
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            reps = 5
+            for _ in range(reps):
+                got = merizo._forward(card, feats)
+            ms = (time.time() - t0) / reps * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            cuda_forwards = merizo.forwards["cuda"]
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                merizo._forward(card, feats)
+            per_kernel = _device_times(prof)
+            busy = sum(per_kernel.values())
+            gru = sum(v for k, v in per_kernel.items() if "rnn" in k.lower() or "gru" in k.lower())
+            top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+            print(f"prep: profile of one Merizo forward: kernel time {busy:.3f} ms of its "
+                  f"{ms:.3f} ms, cuDNN's GRU kernels {gru:.3f} ms; top: "
+                  + "; ".join(f"{v:.3f} ms {k[:60]}" for k, v in top), flush=True)
+            t0 = time.time()
+            want = merizo._forward(host, feats)
+            cpu_s = time.time() - t0
+            errs = [float(np.abs(g - w).max()) for g, w in zip(got, want)]
+            top2 = np.sort(want[0], axis=-1)[:, -2:]
+            clear = top2[:, 1] - top2[:, 0] > MERIZO_TOL
+            ids_agree = bool((np.argmax(got[0], -1) == np.argmax(want[0], -1))[clear].all())
+            print(f"prep: Merizo on {MERIZO_RES} residues, f32 (TF32 off): {ms:.3f} ms a "
+                  f"forward on the card (host clock over {reps}, results on the host), peak "
+                  f"{peak:.3f} GiB, {cuda_forwards} forwards on the card; the CPU's "
+                  f"{cpu_s:.3f} s; card against CPU: mask logits {errs[0]:.3e}, bg logits "
+                  f"{errs[1]:.3e} (gate {MERIZO_TOL:g}), argmax equal at the "
+                  f"{int(clear.sum())} residues whose top two are more than {MERIZO_TOL:g} "
+                  f"apart: {ids_agree}", flush=True)
+            fail_if(max(errs) > MERIZO_TOL, f"Merizo card against CPU: {errs}")
+            fail_if(not ids_agree, "Merizo's domain argmax differs between card and CPU")
+            fail_if(cuda_forwards != reps + 1, f"{cuda_forwards} Merizo forwards on the card")
+            res["merizo"] = dict(residues=MERIZO_RES, ms_per_forward=ms, peak_gib=peak,
+                                 cuda_forwards=cuda_forwards, cpu_s=cpu_s, kernel_ms=busy,
+                                 gru_ms=gru, top=[[k[:200], v] for k, v in top],
+                                 max_abs_err_masks=errs[0], max_abs_err_bg=errs[1],
+                                 tolerance=MERIZO_TOL)
+
+            # cli.prep af3-results: two models, two chains each
+            inp = root / "inputs" / "synth"
+            results = inp / "AF3_results"
+            chain_sizes = {}
+            for m, (fold, chains) in enumerate(PREP_CHAINS.items()):
+                coords = {}
+                for c, (cid, doms) in enumerate(chains.items()):
+                    parts = [make_chain(n, (60, 60, 60), args.seed + 10 * m + 3 * c + d)
+                             + np.array([70.0 * d, 0, 0]) for d, n in enumerate(doms)]
+                    coords[cid] = np.concatenate(parts)
+                    chain_sizes[f"{fold}_model_0_chain_{cid}"] = len(coords[cid])
+                (results / fold).mkdir(parents=True)
+                write_backbone_cif(results / fold / f"{fold}_model_0.cif", coords, args.seed + m)
+            calls = []
+            segment = merizo.segment_chain_atoms
+
+            def recorded(atoms, *a, **kw):
+                before = dict(merizo.forwards)
+                out = segment(atoms, *a, **kw)
+                calls.append(dict(cas=int(len(pdb_io.select(atoms, name="CA"))),
+                                  **{k: merizo.forwards[k] - before[k] for k in before},
+                                  domains=int(len(np.unique(out[0][out[0] > 0])))))
+                return out
+
+            merizo.segment_chain_atoms = recorded
+            try:
+                t0 = time.time()
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli_prep.main(["af3-results", "-a", str(results)])
+                af3_s = time.time() - t0
+            finally:
+                merizo.segment_chain_atoms = segment
+            counts = json.loads(buf.getvalue().strip().splitlines()[-1])
+            print(f"prep: cli.prep af3-results: exit {rc}, {counts} in {af3_s:.3f} s; Merizo "
+                  f"calls (CAs, card forwards, CPU forwards, domains found): "
+                  f"{[(c['cas'], c['cuda'], c['cpu'], c['domains']) for c in calls]}",
+                  flush=True)
+            fail_if(rc != 0, f"cli.prep af3-results exited {rc}")
+            fail_if(counts != {"converted": 2, "failed": 0, "chains": 4,
+                               "domains": counts["domains"]} or counts["domains"] < 4,
+                    f"cli.prep af3-results counts {counts}")
+            long = sorted(n for n in chain_sizes.values() if n >= 50)
+            fail_if(sorted(c["cas"] for c in calls) != long,
+                    f"Merizo ran on chains of {[c['cas'] for c in calls]} CAs, expected {long}")
+            fail_if(any(c["cuda"] < 1 or c["cpu"] for c in calls),
+                    "Merizo did not run on the card for every chain")
+            for stem, n in chain_sizes.items():
+                chain_pdb = inp / "AF3_chains" / f"{stem}.pdb"
+                fail_if(not chain_pdb.exists(), f"{chain_pdb.name} missing")
+                chain_res = set(pdb_io.parse_pdb(chain_pdb)["res_id"].tolist())
+                fail_if(len(chain_res) != n, f"{chain_pdb.name}: {len(chain_res)} residues of {n}")
+                doms = sorted((inp / "AF3_domains").glob(f"{stem}_domain_*.pdb"))
+                fail_if(not doms, f"no domain file of {stem}")
+                for d in doms:
+                    dres = set(pdb_io.parse_pdb(d)["res_id"].tolist())
+                    fail_if(not dres or not dres <= chain_res, f"{d.name} leaves its chain")
+                res.setdefault("domains", {})[stem] = len(doms)
+            print(f"prep: domain files per chain {res['domains']}, residues inside their chain",
+                  flush=True)
+            res["af3_results"] = dict(counts=counts, seconds=af3_s, merizo_calls=calls)
+
+            # cli.prep af3-json
+            fasta = root / "synth.fasta"
+            fasta.write_text(">synth_1|Chains A, B\nMKTAYIAKQRQISFVKSHFSRQLEERLG\n"
+                             ">synth_2|Chain C\nMSXXKLLVAGHX\n>dna\nACGTACGTACGT\n")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli_prep.main(["af3-json", "-f", str(fasta), "-i", str(root / "inputs")])
+            jdir = root / "inputs" / "synth" / "AF3_JSON"
+            files = sorted(p.name for p in jdir.glob("*.json"))
+            j1 = json.loads((jdir / "synth_1.json").read_text())[0]
+            j2 = json.loads((jdir / "synth_2.json").read_text())[0]
+            fail_if(rc != 0 or files != ["synth_1.json", "synth_2.json"],
+                    f"cli.prep af3-json: exit {rc}, files {files}")
+            fail_if([s["proteinChain"]["id"] for s in j1["sequences"]] != ["A", "B"]
+                    or j2["sequences"][0]["proteinChain"]["sequence"] != "MSKLLVAGH"
+                    or j1["dialect"] != "alphafold3", f"cli.prep af3-json payloads {j1} {j2}")
+            print(f"prep: cli.prep af3-json: exit {rc}, {files} (the DNA entry skipped, X "
+                  "removed)", flush=True)
+
+            # cli.prep dock --dry_run: PHENIX is absent, its commands are made
+            data = np.zeros((64, 64, 64), np.float32)
+            data[8:56, 8:56, 8:56] = np.random.default_rng(args.seed).random((48, 48, 48))
+            write_mrc(root / "map.mrc", data, voxel_size=1.0)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_prep.main(["dock", "-m", str(root / "map.mrc"), "-i", str(inp),
+                                    "--resolution", "3.5", "--contour_level", "0.5",
+                                    "--dry_run"])
+            dock_out = json.loads(buf.getvalue().strip().splitlines()[-1])
+            n_dom = len(list((inp / "AF3_domains").glob("*.pdb")))
+            thr = read_mrc(inp / "docking_work" / "docking_map_0.mrc").data
+            fail_if(rc != 0 or dock_out != {"docked": 0, "merged": None, "commands": n_dom},
+                    f"cli.prep dock: exit {rc}, {dock_out} for {n_dom} domains")
+            fail_if(bool(((thr > 0) & (thr < 0.5)).any()), "dock's map not thresholded")
+            from mica_tpu_torch.prep.dock import dock_structures
+
+            cmds = dock_structures(str(root / "map.mrc"),
+                                   sorted(str(p) for p in (inp / "AF3_domains").glob("*.pdb")),
+                                   3.5, 0.5, str(root / "dock_check"), dry_run=True)["commands"]
+            fail_if(len(cmds) != n_dom or not all(
+                "phenix.dock_in_map search_model=" in c and "resolution=3.5" in c
+                and f"map_file={root / 'dock_check' / 'docking_map_0.mrc'}" in c
+                for c in cmds), f"dock commands {cmds[:2]}")
+            print(f"prep: cli.prep dock --dry_run: exit {rc}, {dock_out}; the map thresholded "
+                  f"at 0.5; e.g. {cmds[0].split(' && ')[-1][:160]}...", flush=True)
+        finally:
+            if saved_env is None:
+                os.environ.pop("MICA_MERIZO_WEIGHTS", None)
+            else:
+                os.environ["MICA_MERIZO_WEIGHTS"] = saved_env
+    merizo._load_weights_cached.cache_clear()
+    res["phase_s"] = time.time() - t_phase
+    detail["prep"] = res
+    return res["phase_s"]
+
+
+# The dumps phase: ``cli.predict --npz_dir`` at base 64, bf16.
+DUMP_MAP = 96            # voxels an axis: 8 windows of core 48
+
+
+def rebuild_from_dumps(files, halo: int):
+    """A volume from reference-layout dumps: each window's core, cropped to
+    the volume by its di/dj/dk, pasted at its i/j/k."""
+    vol = None
+    for f in files:
+        z = np.load(f, allow_pickle=True)
+        data, m = z["data"], z["metadata"].item()
+        if vol is None:
+            vol = np.zeros(data.shape[:-3] + tuple(int(s) for s in m["orig_shape"]), data.dtype)
+        i, j, k, di, dj, dk = (m[c] for c in ("i", "j", "k", "di", "dj", "dk"))
+        vol[..., i:i + di, j:j + dj, k:k + dk] = data[..., halo:halo + di, halo:halo + dj,
+                                                      halo:halo + dk]
+    return vol
+
+
+def dumps_path(torch, args, detail):
+    """``predict_map`` and ``cli.predict --npz_dir`` with reference-layout
+    dumps on a ``DUMP_MAP``^3 map with empty windows: four files a window,
+    the volumes rebuilt from them equal to the returned (and written) ones,
+    K9 and K10 once a computed batch."""
+    from scipy.ndimage import gaussian_filter
+
+    from mica_tpu_torch.cli import predict as cli_predict
+    from mica_tpu_torch.infer.pipeline import predict_map
+    from mica_tpu_torch.io.mrc import read_mrc, write_mrc
+    from mica_tpu_torch.models.mica import MICA
+    from mica_tpu_torch.utils.parity import mask_dice_report
+
+    keys = ("backbone_probability", "carbon_alpha_probability", "amino_acid_probability",
+            "amino_acid_prediction")
+    t_phase, res = time.time(), {}
+    model = MICA(base=BASE).init_weights(torch.Generator().manual_seed(args.seed + 7))
+    n = DUMP_MAP
+    vol = np.zeros((n, n, n), np.float32)
+    vol[10:70, 12:40, 14:38] = gaussian_filter(
+        np.random.default_rng(args.seed).random((60, 28, 24)).astype(np.float32), 1.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_mrc(root / "map.mrc", np.transpose(vol, (2, 1, 0)), voxel_size=1.0)
+        torch.save(model.state_dict(), root / "ck.pth")
+
+        def check(dump_dir, launches, timing, what):
+            computed = timing["n_windows"] - timing["n_empty"]
+            batches = -(-computed // BATCH)
+            files = sorted(dump_dir.glob("grid_i*_j*_k*_*.npz"))
+            fail_if(timing["n_windows"] != 8 or timing["n_empty"] < 1,
+                    f"{what}: {timing['n_windows']} windows, {timing['n_empty']} empty")
+            fail_if(len(files) != 4 * timing["n_windows"],
+                    f"{what}: {len(files)} files for {timing['n_windows']} windows")
+            fail_if(launches["gather_windows"] != batches or launches["scatter_cores"] != batches,
+                    f"{what}: K9/K10 {launches['gather_windows']}/{launches['scatter_cores']} "
+                    f"launches for {batches} batches")
+            return {k: rebuild_from_dumps(sorted(dump_dir.glob(f"*_{k}.npz")), 8) for k in keys}
+
+        _reset_counts()
+        t0 = time.time()
+        out = predict_map(str(root / "map.mrc"), model, batch_size=BATCH, dtype=torch.bfloat16,
+                          base_filters=BASE, core=48, halo=8, dump_windows_dir=str(root / "d1"),
+                          dump_format="reference")
+        wall = time.time() - t0
+        launches = _read_counts()
+        timing = out["timing"]
+        rebuilt = check(root / "d1", launches, timing, "predict_map")
+        for k in keys:
+            fail_if(not np.array_equal(rebuilt[k], out[k]), f"rebuilt {k} differs from returned")
+        report = mask_dice_report(rebuilt, out)
+        fail_if(report["min_dice"] != 1.0 or report["amino_acid_agreement"] != 1.0,
+                f"Dice report of rebuilt against returned {report}")
+        print(f"dumps: predict_map, {n}^3, {timing['n_windows']} windows ({timing['n_empty']} "
+              f"empty), {len(list((root / 'd1').iterdir()))} files in {wall:.3f} s; launches "
+              f"K9/K10 {launches['gather_windows']}/{launches['scatter_cores']}; rebuilt "
+              f"volumes equal the returned ones; Dice report {report}", flush=True)
+
+        _reset_counts()
+        t0 = time.time()
+        rc = cli_predict.main(["-m", str(root / "map.mrc"), "-o", str(root / "out"),
+                               "--npz_dir", str(root / "d2"), "--model_checkpoint",
+                               str(root / "ck.pth"), "--batch_size", str(BATCH),
+                               "--base_filters", str(BASE)])
+        cli_s = time.time() - t0
+        cli_launches = _read_counts()
+        fail_if(rc != 0, f"cli.predict --npz_dir exited {rc}")
+        rebuilt2 = check(root / "d2", cli_launches, timing, "cli.predict")
+        for k in ("backbone_probability", "carbon_alpha_probability", "amino_acid_prediction"):
+            written = np.transpose(read_mrc(root / "out" / f"{k}.mrc").data, (2, 1, 0))
+            fail_if(not np.array_equal(rebuilt2[k].astype(np.float32), written),
+                    f"cli.predict: rebuilt {k} differs from the written volume")
+        aa_written = np.load(root / "out" / "amino_acid_probability.npz")["data"]
+        fail_if(not np.array_equal(rebuilt2["amino_acid_probability"].astype(np.float16),
+                                   aa_written), "cli.predict: rebuilt aa differs from written")
+        report2 = mask_dice_report(rebuilt2, out)
+        try:
+            cli_predict.main(["-m", str(root / "map.mrc"), str(root / "map.mrc"), "-o",
+                              str(root / "o3"), "--npz_dir", str(root / "d3")])
+            refused = False
+        except SystemExit as e:
+            refused = e.code == 2
+        fail_if(not refused or (root / "d3").exists(), "--npz_dir with two maps not refused")
+        print(f"dumps: cli.predict --npz_dir: exit {rc} in {cli_s:.3f} s, K9/K10 "
+              f"{cli_launches['gather_windows']}/{cli_launches['scatter_cores']}; rebuilt "
+              f"volumes equal the written ones; against predict_map's {report2}; two maps "
+              "refused", flush=True)
+    res.update(timing=timing, launches=launches, wall_s=wall, dice=report, cli_s=cli_s,
+               cli_launches=cli_launches, cli_vs_predict_map=report2)
+    res["phase_s"] = time.time() - t_phase
+    detail["dumps"] = res
+    return res["phase_s"]
+
+
 # The learned phase: the fixture's training (``scripts/train_synth_fixture``:
 # base 16, bf16, batch 8, 144^3 scenarios of 170 residues, lr 3e-4) for
 # LEARNED_STEPS of its 1200 steps, on LEARNED_SCENARIOS of its 8 scenarios,
@@ -2236,6 +2600,13 @@ def main() -> int:
     out.write_text(json.dumps(detail, indent=1))
 
     f32_path(torch, args, detail)
+    out.write_text(json.dumps(detail, indent=1))
+
+    prep_s = prep_path(torch, args, detail)
+    print(f"prep phase: {prep_s:.1f} s (card: {smi})", flush=True)
+    dumps_s = dumps_path(torch, args, detail)
+    print(f"dumps phase: {dumps_s:.1f} s (card: {smi})", flush=True)
+    torch.cuda.empty_cache()
     out.write_text(json.dumps(detail, indent=1))
 
     learned_launches = learned_path(torch, args, detail)

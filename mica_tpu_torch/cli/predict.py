@@ -1,6 +1,7 @@
 """Prediction CLI: map -> BB/CA/AA probability volumes (MRC).
 
     python -m mica_tpu_torch.cli.predict -m map.mrc -o out/ [--model_checkpoint ck.pth]
+        [--npz_dir grids/]
 
 Flag-compatible with ``mica_tpu/cli/predict.py``, plus ``--device``.
 """
@@ -33,7 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the network in float32 instead of bfloat16 (library "
                         "convs, TF32 off, on the card or the CPU)")
     p.add_argument("--npz_dir", default="",
-                   help="per-grid .npz artifacts (not available in this port yet)")
+                   help="also write each window's prediction .npz files in the "
+                        "original's per-grid layout (grid_i*_j*_k*_<quantity>.npz)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return p
 
@@ -52,12 +54,13 @@ def main(argv=None) -> int:
     from ..models.convert import load_checkpoint
     from ..models.mica import MICA
 
-    if args.npz_dir:
-        p.error("--npz_dir (per-grid artifacts) is not available in the PyTorch port yet")
     maps = list(args.map_path)
     if len(maps) > 1 and args.docked_model:
         p.error("--docked_model applies to a single map; run maps with "
                 "docked models individually")
+    if len(maps) > 1 and args.npz_dir:
+        p.error("--npz_dir with multiple maps would interleave their per-grid "
+                "files in one directory; run them individually")
 
     if args.model_checkpoint:
         params = load_checkpoint(args.model_checkpoint)
@@ -77,6 +80,8 @@ def main(argv=None) -> int:
             dtype=torch.float32 if args.float32 else torch.bfloat16,
             predictor=predictor,
             device=args.device,
+            dump_windows_dir=args.npz_dir or None,
+            dump_format="reference",
         )
         predictor = out["predictor"]
         prepared = out["prepared_map"]

@@ -18,12 +18,21 @@ windows with torch slices.
 All-zero windows give identical outputs, so in core blend the volumes
 start as a tiling of the all-zero window's core and only nonempty windows
 are computed.
+
+``dump_windows_dir`` writes each window's outputs to ``.npz`` files, the
+empty windows' from the all-zero window: ``"compact"``, one file a window
+with what the forward returned; ``"reference"``, the original's per-grid
+layout, four files a window with the full window's ``data`` and its
+``metadata``.  In the reference layout the forward returns full windows;
+K9 still gathers them and K10 pastes their cores.  Only the dump copies
+to the host.
 """
 
 from __future__ import annotations
 
 import time
 from collections.abc import Mapping
+from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -114,6 +123,41 @@ def postprocess_logits(bb: torch.Tensor, ca: torch.Tensor, aa: torch.Tensor):
     return p_atom(bb)[..., None], p_atom(ca)[..., None], torch.softmax(aa[..., 1:], dim=-1)
 
 
+def _core_of(t: torch.Tensor, halo: int, core: int, batched: bool = True) -> torch.Tensor:
+    """The core cube of full windows (n, w, w, w[, A]), or of one window."""
+    c = slice(halo, halo + core)
+    return t[:, c, c, c] if batched else t[c, c, c]
+
+
+def _dump_window(dump_dir: Path, reference: bool, bb: np.ndarray, ca: np.ndarray,
+                 aa: np.ndarray, start, core: int, shape) -> None:
+    """One window's dump files; ``aa`` is channels-last."""
+    i, j, k = (int(v) for v in start)
+    if not reference:
+        np.savez_compressed(dump_dir / f"win_i{i}_j{j}_k{k}.npz", backbone=bb,
+                            carbon_alpha=ca, amino_acid=aa,
+                            start=np.asarray(start, np.int32))
+        return
+    stem = f"grid_i{i}_j{j}_k{k}"
+    aa_first = np.moveaxis(aa, -1, 0)
+    quantities = {
+        "backbone_probability": bb,
+        "carbon_alpha_probability": ca,
+        "amino_acid_probability": aa_first,
+        "amino_acid_prediction": np.argmax(aa_first, axis=0),
+    }
+    meta = {
+        "i": i, "j": j, "k": k,
+        "di": int(min(core, shape[0] - i)),
+        "dj": int(min(core, shape[1] - j)),
+        "dk": int(min(core, shape[2] - k)),
+        "orig_shape": np.asarray(shape),
+        "filename": stem,
+    }
+    for key, data in quantities.items():
+        np.savez(dump_dir / f"{stem}_{key}.npz", data=data, metadata=meta)
+
+
 def _as_state_dict(params) -> Mapping:
     """A torch state dict as is; a JAX parameter tree (nested mappings,
     no dotted keys) through the weight carrier."""
@@ -181,14 +225,29 @@ class SlidingWindowPredictor:
 
     def predict_volume(self, volume: np.ndarray,
                        af_encoding: Optional[np.ndarray] = None,
-                       keep_on_device: bool = False) -> Dict:
+                       keep_on_device: bool = False,
+                       dump_windows_dir: Optional[str] = None,
+                       dump_format: str = "compact") -> Dict:
         """Predict BB/CA/AA volumes for a normalized ``volume[x, y, z]``;
         ``af_encoding`` is (24, X, Y, Z) or None.  Returns
         ``backbone_probability``, ``carbon_alpha_probability`` (X,Y,Z),
         ``amino_acid_probability`` (20,X,Y,Z) and ``amino_acid_prediction``
         (X,Y,Z; argmax 0..19) as numpy arrays, or with ``keep_on_device``
         as tensors on the predictor's device (nothing is copied to the
-        host; candidate extraction reads them there)."""
+        host; candidate extraction reads them there).
+
+        ``dump_windows_dir``: also write every window's outputs there in
+        ``dump_format``, ``"compact"`` (``win_i{i}_j{j}_k{k}.npz``: what
+        the forward returned, the core or in average blend the full window,
+        channels-last AA, and ``start``) or ``"reference"`` (four
+        ``grid_i{i}_j{j}_k{k}_<quantity>.npz`` a window, each the full
+        window's ``data``, AA channels-first, and a ``metadata`` dict of
+        i/j/k, the core extents di/dj/dk inside the volume, ``orig_shape``
+        and ``filename``)."""
+        if dump_format not in ("compact", "reference"):
+            raise ValueError(f"unknown dump_format {dump_format!r}")
+        dump_dir = None if dump_windows_dir is None else Path(dump_windows_dir)
+        dump_reference = dump_dir is not None and dump_format == "reference"
         t0 = time.time()
         dev = self.device
         core_n, halo, win = self.core, self.halo, self.window
@@ -231,9 +290,10 @@ class SlidingWindowPredictor:
         self.timing["n_empty"] = int(len(empty_starts))
 
         average = self.blend == "average"
+        full = average or dump_reference
         forwards0 = self.n_forwards
         need_zero = not average or len(empty_starts)
-        z = self._zero_core(with_af, af_float, average) if need_zero else None
+        z = self._zero_core(with_af, af_float, full) if need_zero else None
         if average:
             acc_shape = tuple(np_padded.shape)
             bb_v = torch.zeros(acc_shape, device=dev)
@@ -242,9 +302,10 @@ class SlidingWindowPredictor:
             cnt_v = torch.zeros(acc_shape, device=dev)
         else:
             reps = counts
-            bb_v = z[0].repeat(reps)
-            ca_v = z[1].repeat(reps)
-            aa_v = z[2].repeat(reps + (1,))
+            zc = tuple(_core_of(v, halo, core_n, batched=False) for v in z) if full else z
+            bb_v = zc[0].repeat(reps)
+            ca_v = zc[1].repeat(reps)
+            aa_v = zc[2].repeat(reps + (1,))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.timing["setup"] = time.time() - t0
@@ -263,6 +324,15 @@ class SlidingWindowPredictor:
                 ca_v[x:x + c, y:y + c, zz:zz + c] = ca_c
                 aa_v[x:x + c, y:y + c, zz:zz + c] = aa_c
 
+        if dump_dir is not None:
+            dump_dir.mkdir(parents=True, exist_ok=True)
+
+        def dump(outs, batch):
+            bb_c, ca_c, aa_c = (v.cpu().numpy() for v in outs)
+            for i, s in enumerate(batch):
+                _dump_window(dump_dir, dump_reference, bb_c[i], ca_c[i], aa_c[i], s,
+                             core_n, shape)
+
         t1 = time.time()
         bsz = self.batch_size
         copy_kernels = not average and not af_float
@@ -275,7 +345,10 @@ class SlidingWindowPredictor:
                 st = dev_starts[ofs:ofs + bsz]
                 got = gather_windows(padded_map, padded_af, st, win)
                 wins, afs = got if with_af else (got, None)
-                cores = self._forward(wins, afs, False)
+                outs = self._forward(wins, afs, full)
+                if dump_dir is not None:
+                    dump(outs, batch)
+                cores = tuple(_core_of(v, halo, core_n) for v in outs) if full else outs
                 scatter_cores((bb_v, ca_v, aa_v), tuple(c.contiguous() for c in cores),
                               st, len(batch), core_n)
                 continue
@@ -285,12 +358,21 @@ class SlidingWindowPredictor:
             if with_af:
                 afs = torch.stack([padded_af[x:x + win, y:y + win, zz:zz + win]
                                    for x, y, zz in batch])
-            bb_c, ca_c, aa_c = self._forward(wins, afs, average)
+            outs = self._forward(wins, afs, full)
+            if dump_dir is not None:
+                dump(outs, batch)
+            if full and not average:
+                outs = tuple(_core_of(v, halo, core_n) for v in outs)
             for i, s in enumerate(batch):
-                paste(bb_c[i], ca_c[i], aa_c[i], s)
+                paste(outs[0][i], outs[1][i], outs[2][i], s)
         if average:
             for s in empty_starts:
                 paste(z[0], z[1], z[2], s)
+        if dump_dir is not None and len(empty_starts):
+            # identical (all-zero) inputs give identical outputs
+            zb, zca, zaa = (v.cpu().numpy() for v in z)
+            for s in empty_starts:
+                _dump_window(dump_dir, dump_reference, zb, zca, zaa, s, core_n, shape)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.timing["inference"] = time.time() - t1

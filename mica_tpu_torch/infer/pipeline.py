@@ -83,13 +83,17 @@ def predict_map(
     halo: int = 8,
     predictor: Optional[SlidingWindowPredictor] = None,
     device=None,
+    dump_windows_dir: Optional[str] = None,
+    dump_format: str = "compact",
 ) -> Dict[str, object]:
     """End-to-end: map file (+ optional docked AF3 model) -> prediction
     volumes.  ``params``: a torch state dict, a JAX parameter tree or a
     ``MICA`` module.  ``predictor`` reuses an existing predictor (the
     returned dict carries it under ``"predictor"``).  ``batch_size=0``
     derives the batch from the card's memory; ``core=0`` picks the window
-    geometry with the fewest computed voxels."""
+    geometry with the fewest computed voxels.  ``dump_windows_dir`` and
+    ``dump_format`` write every window's outputs
+    (``SlidingWindowPredictor.predict_volume``)."""
     dev = resolve_device(device if predictor is None else predictor.device)
     prepared = prepare_map(map_path, device=dev)
     if predictor is not None:
@@ -109,7 +113,8 @@ def predict_map(
             params, batch_size=batch_size,
             dtype=dtype if dtype is not None else torch.bfloat16,
             base_filters=base_filters, core=core, halo=halo, device=dev)
-    out = predictor.predict_volume(prepared.volume, encoding)
+    out = predictor.predict_volume(prepared.volume, encoding, dump_windows_dir=dump_windows_dir,
+                                   dump_format=dump_format)
     out["prepared_map"] = prepared
     out["predictor"] = predictor
     out["timing"] = dict(predictor.timing)

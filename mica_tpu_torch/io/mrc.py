@@ -255,3 +255,19 @@ def write_mrc(
         f.write(bytes(hdr))
         f.write(np.ascontiguousarray(data).tobytes())
 
+
+
+def write_mrc_like(
+    path: Union[str, Path], data: np.ndarray, like: MrcVolume,
+    voxel_size: Union[float, Tuple[float, float, float], None] = None,
+) -> None:
+    """Write ``data`` reusing origin/nstart/axis-order metadata from ``like``."""
+    h = like.header
+    vs = like.voxel_size if voxel_size is None else voxel_size
+    write_mrc(
+        path, data,
+        voxel_size=vs if np.ndim(vs) else (float(vs),) * 3,
+        origin=h.origin,
+        nstart=(h.nxstart, h.nystart, h.nzstart),
+        axis_order=(h.mapc, h.mapr, h.maps),
+    )

@@ -116,3 +116,50 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
             f"bare state dict of tensors); its keys: {sorted(map(str, ckpt))[:12]}")
     return {(k[len("module."):] if k.startswith("module.") else k): v.float()
             for k, v in sd.items()}
+
+
+def _carry(flat: Dict[str, np.ndarray], module_path) -> Dict[str, torch.Tensor]:
+    """Flat flax leaves ``a/b/leaf`` -> torch keys: ``module_path`` maps the
+    module segments to a dotted torch path; a dense ``kernel`` (in, out)
+    becomes ``weight`` (out, in), a LayerNorm ``scale`` becomes ``weight``,
+    other leaves keep their names and layouts."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, v in flat.items():
+        *mods, leaf = path.split("/")
+        if leaf == "kernel":
+            leaf, v = "weight", v.T
+        elif leaf == "scale":
+            leaf = "weight"
+        key = ".".join([m for m in [module_path(mods)] if m] + [leaf])
+        out[key] = torch.from_numpy(np.ascontiguousarray(v))
+    return out
+
+
+_MERIZO_MODULES = {"transition_gru": "transition.layers.0",
+                   "transition_ln": "transition.layer_norm",
+                   "qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+
+
+def _merizo_path(mods) -> str:
+    return ".".join(f"blocks.{m[5:]}" if m.startswith("block") else _MERIZO_MODULES.get(m, m)
+                    for m in mods)
+
+
+def merizo_state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's Merizo trees ``{"merizo": ..., "confidence": ...}``
+    -> the original torch network's state dict (``models.merizo.Merizo``);
+    the confidence head's GRU and dense sit under ``decoder_head``."""
+    sd = _carry(_flatten(params["merizo"]), _merizo_path)
+    sd["decoder_head.cls_emb"] = sd["decoder_head.cls_emb"][None]
+    sd.update(_carry(_flatten(params["confidence"]),
+                     lambda mods: "decoder_head." + ".".join(mods)))
+    return sd
+
+
+def segmenter_state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``DomainSegmenter`` tree -> the state dict of
+    ``models.segmenter.DomainSegmenter`` (``ipa{i}`` -> ``blocks.{i}``,
+    its ``LayerNorm_0/1`` -> ``norm1/2``)."""
+    norms = {"LayerNorm_0": "norm1", "LayerNorm_1": "norm2"}
+    return _carry(_flatten(params), lambda mods: ".".join(
+        f"blocks.{m[3:]}" if m.startswith("ipa") else norms.get(m, m) for m in mods))

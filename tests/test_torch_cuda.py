@@ -687,3 +687,66 @@ def test_trainer_step_base16_bf16_on_the_card(gen):
     assert {k: conv3d_in.launches[k] - before[k] for k in before} == {
         "conv3d_stats": 13, "in_apply": 0, "in_apply_ad": 8, "in_bwd_stats": 5,
         "in_bwd_apply": 5}
+
+
+def test_merizo_on_the_card_matches_the_cpu(gen):
+    """Merizo in f32 on the card (TF32 held off, the flags restored after)
+    against the same weights on the CPU: mask and background logits within
+    1e-3; one forward counted on the card."""
+    import numpy as np
+
+    from mica_tpu_torch.models import merizo
+
+    torch.manual_seed(0)
+    model = merizo.Merizo().eval()
+    rng = np.random.default_rng(0)
+    n = 150
+    t = np.arange(n) * (100.0 * np.pi / 180.0)
+    ca = np.stack([2.3 * np.cos(t), 2.3 * np.sin(t), 1.5 * np.arange(n)], 1)
+    rot, trans = merizo.gram_schmidt_frames(ca + [-1.2, 0.3, -0.5], ca, ca + [1.2, -0.4, 0.4])
+    feats = {"s": np.eye(20, dtype=np.float32)[rng.integers(0, 20, n)],
+             "z": np.linalg.norm(ca[:, None] - ca[None], axis=-1).astype(np.float32),
+             "rot": rot.astype(np.float32), "trans": trans.astype(np.float32),
+             "ri": np.arange(1, n + 1, dtype=np.float32), "ca_xyz": ca}
+    want = merizo._forward(model, feats)
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    before = merizo.forwards["cuda"]
+    got = merizo._forward(model.cuda(), feats)
+    assert merizo.forwards["cuda"] == before + 1
+    assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
+    for g, w in zip(got, want):
+        assert np.abs(g - w).max() <= 1e-3
+
+
+def test_reference_dumps_on_the_card_go_through_the_copy_kernels(gen, tmp_path):
+    """Reference-layout dumps at base 64 bf16: K9 and K10 launch once a
+    computed batch, as without dumps; four files a window, empty windows
+    included; the volumes rebuilt from them equal the returned ones."""
+    import numpy as np
+
+    from mica_tpu_torch.infer import engine
+    from mica_tpu_torch.models.mica import MICA
+    from mica_tpu_torch.ops import window_copy as wc
+
+    rng = np.random.default_rng(3)
+    vol = np.zeros((40, 30, 20), np.float32)
+    vol[2:20, 3:22, 1:15] = rng.random((18, 19, 14))
+    model = MICA(base=64).init_weights(torch.Generator().manual_seed(0))
+    pred = engine.SlidingWindowPredictor(model, batch_size=2, base_filters=64, core=16, halo=8)
+    before = dict(wc.launches)
+    out = pred.predict_volume(vol, dump_windows_dir=str(tmp_path), dump_format="reference")
+    batches = pred.timing["n_forwards"] - 1
+    assert pred.timing["n_empty"] > 0 and batches >= 1
+    assert {k: wc.launches[k] - before[k] for k in before} == {
+        "gather_windows": batches, "scatter_cores": batches}
+    for key in ("backbone_probability", "carbon_alpha_probability", "amino_acid_probability"):
+        files = sorted(tmp_path.glob(f"grid_*_{key}.npz"))
+        assert len(files) == pred.timing["n_windows"]
+        rebuilt = np.zeros(out[key].shape, np.float32)
+        for f in files:
+            z = np.load(f, allow_pickle=True)
+            m = z["metadata"].item()
+            i, j, k, di, dj, dk = (m[c] for c in ("i", "j", "k", "di", "dj", "dk"))
+            rebuilt[..., i:i + di, j:j + dj, k:k + dk] = z["data"][..., 8:8 + di, 8:8 + dj,
+                                                                   8:8 + dk]
+        np.testing.assert_array_equal(rebuilt, out[key], err_msg=key)

@@ -52,6 +52,13 @@ def test_entry_points_raise_without_card():
         from mica_tpu_torch.infer.pipeline import prepare_map
 
         prepare_map("unused.mrc")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        import numpy as np
+
+        from mica_tpu_torch.io import pdb as pdb_io
+        from mica_tpu_torch.models import merizo
+
+        merizo.segment_chain_atoms(np.zeros(0, pdb_io.ATOM_DTYPE), "unused_weights", device=None)
 
 
 def test_cpu_wrappers_take_plain_version():
