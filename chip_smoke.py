@@ -102,7 +102,22 @@ Phases, each printing what it found; any failure ends the run non-zero:
      plain version and one library call (K13 in turns with it);
      then the ``main`` of ``mica_tpu_torch.scripts.distill_ew_crash``,
      ``bench_in_apply`` (K2) and ``probe_layout_boundary`` in this
-     process, with the launch counts of those three runs alone.
+     process, with the launch counts of those three runs alone;
+ 12. the multi-GPU phase (``multigpu_path``, about 75 s): NCCL at world
+     size 1 in this process, ``predict_map`` with the mesh at base 64 on
+     the prediction phase's map, its forwards replaying a single-process
+     run's (``_recording_predictor``: the kernels launch, the inputs must
+     match to the bit), so its volumes must equal that run's to the bit
+     (K1's atomics make two plain bf16 runs differ; their distance and a
+     mesh run's without replay are printed), windows/s, K9/K10 once a
+     batch, and a data-parallel f32 ``Trainer`` step (cuDNN deterministic)
+     against two plain ones; two rank processes at world size 2 (gloo with
+     both ranks on ``cuda:0``: NCCL refuses two ranks on one card), the
+     replicated engine within ``MGPU_WORLD2_TOL`` of world 1 and equal on
+     both ranks, the ``shard_volumes`` engine replaying it (equal to the
+     bit) at <= 0.55x its bytes a rank, the f32 step against world 1 (loss,
+     gradient cosine, parameters equal on both ranks) and a bf16 step's
+     launches on each rank; then ``dryrun_multigpu(2)``.
 
 The kernels' JSON record and the card's name come before the last line,
 ``{"ok": true, "device": {...}}``.  Details go to ``--out`` (default
@@ -113,6 +128,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import math
 import os
@@ -2518,6 +2534,314 @@ def scripts_path(torch, detail):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the multi-GPU phase
+# ---------------------------------------------------------------------------
+
+# Gates of the multi-GPU phase, set before its first card run.  World 2
+# (gloo, both ranks on one card, 4 windows a rank a batch) against world 1
+# (8 windows a batch): the probabilities; the batch composition differs,
+# and K1's statistics are summed with atomics, so not to the bit.
+MGPU_WORLD2_TOL = 0.05
+# the sharded volumes' bytes a rank over the replicated ones'
+MGPU_SHARD_BYTES_MAX = 0.55
+# the data-parallel f32 step at world 2 against world 1: relative loss,
+# cosine of the whole gradient
+DP_LOSS_REL = 1e-5
+DP_GRAD_COS = 0.9999
+DP_BASE, DP_BATCH, DP_WIN = 16, 4, 32
+DP_KERNELS = ("conv3d_stats", "depthwise3", "in_apply_ad", "in_bwd_stats", "in_bwd_apply",
+              "depthwise3_grads")
+
+
+def _probs(out) -> tuple:
+    return tuple(np.asarray(out[k]) for k in (
+        "backbone_probability", "carbon_alpha_probability", "amino_acid_probability"))
+
+
+def _vol_dist(a, b) -> float:
+    return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+
+def _recording_predictor(torch, calls: list, model, **kw):
+    """A ``SlidingWindowPredictor`` whose forwards run as usual (every
+    kernel launches); while its ``recording`` is on they are recorded in
+    ``calls`` (inputs and outputs), and while its ``replaying`` is on they
+    must see the recorded inputs to the bit and return the recorded
+    outputs.  K1's statistics are summed with atomics, so two bf16 runs of
+    the engine differ in a window or two (``probe_repeat.py``); a replayed
+    run differs from the recorded one only in what the engine does around
+    the forward (the row split, the exchange, the paste, the slabs), so the
+    two must be equal to the bit."""
+    from mica_tpu_torch.infer.engine import SlidingWindowPredictor
+
+    class Predictor(SlidingWindowPredictor):
+        recording = replaying = False
+        replayed = 0
+
+        def _forward(self, windows, af, full):
+            outs = super()._forward(windows, af, full)
+            if self.recording:
+                calls.append((windows.clone(), None if af is None else af.clone(),
+                              tuple(o.clone() for o in outs)))
+            if not self.replaying:
+                return outs
+            fail_if(self.replayed >= len(calls), "more forwards than the recorded run's")
+            w0, a0, recorded = calls[self.replayed]
+            self.replayed += 1
+            fail_if(not torch.equal(w0, windows) or (a0 is None) != (af is None)
+                    or (a0 is not None and not torch.equal(a0, af)),
+                    f"forward {self.replayed}: inputs differ from the recorded run's")
+            return recorded
+
+    return Predictor(model, **kw)
+
+
+def _dp_step(torch, sd, seed, **mesh_kw):
+    """One f32 base-16 ``Trainer`` step (augmentation, AF3 blanking and the
+    epoch-0 dropout on) from the weights ``sd`` on ``synthetic_batch``, with
+    cuDNN's deterministic algorithms: (loss, the whole gradient, the
+    parameters after the step)."""
+    from mica_tpu_torch.models.mica import dropout_rate_for_epoch
+    from mica_tpu_torch.train.data import synthetic_batch
+    from mica_tpu_torch.train.loss import task_lambdas
+    from mica_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(base_filters=DP_BASE, dtype=torch.float32, seed=seed, **mesh_kw)
+    state = tr.init_state()
+    tr.model.load_state_dict(sd)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        met = tr.train_step(state, synthetic_batch(DP_BATCH, DP_WIN, seed), task_lambdas(0),
+                            dropout_rate_for_epoch(0))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    params = list(tr.model.parameters())
+    grads = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1)
+                       for p in params]).double().cpu().numpy()
+    return (float(met["total_loss"]), grads,
+            torch.cat([p.detach().reshape(-1) for p in params]).cpu().numpy())
+
+
+def _mgpu_rank(map_path: str, pdb_path: str, seed: int, workdir: str) -> dict:
+    """One rank of the phase's world of 2 (``parallel.dryrun.spawn``): the
+    replicated engine through ``predict_map`` (recorded), the sharded one
+    replaying it, the replicated one again as is; the f32 data-parallel
+    step, then a bf16 one with its launches."""
+    import torch
+
+    from mica_tpu_torch.infer.pipeline import build_af3_encoding, predict_map
+    from mica_tpu_torch.models.mica import MICA, dropout_rate_for_epoch
+    from mica_tpu_torch.parallel import distributed
+    from mica_tpu_torch.train.data import synthetic_batch
+    from mica_tpu_torch.train.loss import task_lambdas
+    from mica_tpu_torch.train.trainer import Trainer
+
+    wd = Path(workdir)
+    mesh = distributed.global_mesh()
+    model = MICA(base=BASE).init_weights(torch.Generator().manual_seed(seed))
+    kw = dict(batch_size=BATCH, dtype=torch.bfloat16, base_filters=BASE, core=48, halo=8,
+              mesh=mesh)
+    calls = []
+    rep = _recording_predictor(torch, calls, model, **kw)
+    rep.recording = True
+    _reset_counts()
+    first = predict_map(map_path, model, docked_pdb_path=pdb_path, predictor=rep)
+    launches = _read_counts()
+    timing = dict(first["timing"])
+    prepared = first["prepared_map"]
+    enc = build_af3_encoding(prepared, pdb_path)
+    rep_vols = _probs(first)
+    del first
+    world1 = np.load(wd / "world1.npz")
+    world1_err = _vol_dist(rep_vols, tuple(world1[k] for k in ("bb", "ca", "aa")))
+    digest = hashlib.sha256(b"".join(v.tobytes() for v in rep_vols)).hexdigest()
+    rep.recording = False
+    sv = _recording_predictor(torch, calls, model, shard_volumes=True, **kw)
+    sv.replaying = True
+    shard_err = _vol_dist(_probs(sv.predict_volume(prepared.volume, enc)), rep_vols)
+    fail_if(sv.replayed != len(calls), f"{sv.replayed} of {len(calls)} forwards replayed")
+    del calls
+    rep_spread = _vol_dist(_probs(rep.predict_volume(prepared.volume, enc)), rep_vols)
+    del rep_vols
+    loss, grads, params = _dp_step(torch, torch.load(wd / "dp_init.pt"), seed, mesh=mesh)
+    np.savez(wd / f"dp_{mesh.rank}.npz", grads=grads, params=params)
+    tr = Trainer(base_filters=DP_BASE, seed=seed, mesh=mesh)
+    state = tr.init_state()
+    _reset_counts()
+    met = tr.train_step(state, synthetic_batch(DP_BATCH, DP_WIN, seed), task_lambdas(0),
+                        dropout_rate_for_epoch(0))
+    torch.cuda.synchronize()
+    bf16_launches = {k: v for k, v in _read_counts().items() if k in DP_KERNELS}
+    return dict(rank=mesh.rank, device=str(mesh.device),
+                backend=torch.distributed.get_backend(), launches=launches, timing=timing,
+                world1_err=world1_err, digest=digest, shard_err=shard_err,
+                rep_spread=rep_spread, acc_bytes_rep=rep.timing["acc_bytes_per_device"],
+                acc_bytes_shard=sv.timing["acc_bytes_per_device"], dp_f32_loss=loss,
+                dp_bf16_loss=float(met["total_loss"]), dp_bf16_launches=bf16_launches)
+
+
+def multigpu_path(torch, args, detail, smi: str) -> float:
+    """The data-parallel paths on the card: NCCL at world size 1 in this
+    process (engine and ``Trainer`` against the plain ones), gloo at world
+    size 2 with both ranks on ``cuda:0`` (NCCL refuses two ranks on one
+    card), then ``dryrun_multigpu(2)``.  Returns the phase's seconds."""
+    from mica_tpu_torch.infer.pipeline import build_af3_encoding, predict_map
+    from mica_tpu_torch.models.mica import MICA
+    from mica_tpu_torch.parallel import distributed, dryrun
+    from mica_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.time()
+    res = {}
+    kw = dict(batch_size=BATCH, dtype=torch.bfloat16, base_filters=BASE, core=48, halo=8)
+    with tempfile.TemporaryDirectory() as tmp:
+        wd = Path(tmp)
+        map_path, pdb_path = synthetic_inputs(wd, args.map_size, args.seed)
+        model = MICA(base=BASE).init_weights(torch.Generator().manual_seed(args.seed))
+
+        # one process, no group: a recorded run, then the same predictor again
+        calls = []
+        plain = _recording_predictor(torch, calls, model, **kw)
+        plain.recording = True
+        first = predict_map(str(map_path), model, docked_pdb_path=str(pdb_path),
+                            predictor=plain)
+        prepared = first["prepared_map"]
+        enc = build_af3_encoding(prepared, str(pdb_path))
+        ref = _probs(first)
+        del first
+        plain.recording = False
+        again = _probs(plain.predict_volume(prepared.volume, enc))
+        res["single_spread"] = _vol_dist(again, ref)
+        res["single_windows_per_s"] = ((plain.timing["n_windows"] - plain.timing["n_empty"])
+                                       / plain.timing["inference"])
+        np.savez(wd / "world1.npz", bb=ref[0], ca=ref[1], aa=ref[2])
+        init = Trainer(base_filters=DP_BASE, dtype=torch.float32, seed=args.seed,
+                       use_mesh=False)
+        init.init_state()
+        sd = {k: v.cpu() for k, v in init.model.state_dict().items()}
+        torch.save(sd, wd / "dp_init.pt")
+        dp_plain = [_dp_step(torch, sd, args.seed, use_mesh=False) for _ in range(2)]
+
+        # NCCL, world size 1, in this process
+        distributed.initialize(init_method=f"file://{wd}/nccl_rendezvous", world_size=1,
+                               rank=0, backend="nccl", local_rank=0, timeout_seconds=300)
+        try:
+            mesh = distributed.global_mesh()
+            fail_if(str(mesh.device) != "cuda:0" or not mesh.distributed,
+                    f"the NCCL world's device is {mesh.device}")
+            nccl = _recording_predictor(torch, calls, model, mesh=mesh, **kw)
+            nccl.replaying = True
+            _reset_counts()
+            out = predict_map(str(map_path), model, docked_pdb_path=str(pdb_path),
+                              predictor=nccl)
+            torch.cuda.synchronize()
+            launches = _read_counts()
+            computed = check_predict_launches(launches, out["timing"])
+            fail_if(nccl.replayed != len(calls), f"{nccl.replayed} of {len(calls)} "
+                                                 "forwards replayed")
+            res["nccl_err"] = _vol_dist(_probs(out), ref)
+            res["nccl_launches"] = launches
+            del out, calls
+            nccl.replaying = False
+            res["nccl_raw_err"] = _vol_dist(_probs(nccl.predict_volume(prepared.volume, enc)),
+                                            ref)
+            res["nccl_windows_per_s"] = computed / nccl.timing["inference"]
+            loss_m, _, params_m = _dp_step(torch, sd, args.seed, mesh=mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+        fail_if(res["nccl_err"] != 0.0, f"NCCL world 1 volumes {res['nccl_err']:.3e} from "
+                                        "the recorded single-process run's")
+        res["plain_step_loss_spread"] = abs(dp_plain[1][0] - dp_plain[0][0])
+        res["plain_step_params_spread"] = float(np.abs(dp_plain[1][2] - dp_plain[0][2]).max())
+        res["nccl_step_loss_err"] = abs(loss_m - dp_plain[0][0])
+        res["nccl_step_params_err"] = float(np.abs(params_m - dp_plain[0][2]).max())
+        for what in ("loss", "params"):
+            err, spread = res[f"nccl_step_{what}_err"], res[f"plain_step_{what}_spread"]
+            fail_if(err > spread, f"NCCL world 1 step: {what} {err:.3e} from the plain "
+                                  f"step's, over two plain steps' spread {spread:.3e}")
+        print(f"multi-GPU, NCCL world 1 (in this process): {res['nccl_windows_per_s']:.3f} "
+              f"windows/s against {res['single_windows_per_s']:.3f} in one process; volumes "
+              f"equal to the bit to a single-process run whose forwards it replays, "
+              f"{res['nccl_raw_err']:.3e} from it without (two single-process runs: "
+              f"{res['single_spread']:.3e}); launches {json.dumps(launches)}; the f32 step "
+              f"(cuDNN deterministic) {res['nccl_step_loss_err']:.3e} in loss and "
+              f"{res['nccl_step_params_err']:.3e} in parameters from the plain step's (two "
+              f"plain steps: {res['plain_step_loss_spread']:.3e}, "
+              f"{res['plain_step_params_spread']:.3e})", flush=True)
+        del model, ref, again, nccl, plain
+        torch.cuda.empty_cache()
+
+        # world size 2: two rank processes
+        t0 = time.time()
+        ranks = dryrun.spawn("chip_smoke:_mgpu_rank", 2,
+                             dict(map_path=str(map_path), pdb_path=str(pdb_path),
+                                  seed=args.seed, workdir=str(wd)),
+                             timeout=400, group_timeout=300)
+        res["world2_s"] = time.time() - t0
+        dp = [np.load(wd / f"dp_{r}.npz") for r in range(2)]
+        loss1, grads1 = dp_plain[0][0], dp_plain[0][1]
+    for r in ranks:
+        fail_if(r["world1_err"] > MGPU_WORLD2_TOL,
+                f"rank {r['rank']}: world 2 volumes {r['world1_err']:.3e} from world 1's")
+        fail_if(r["shard_err"] != 0.0,
+                f"rank {r['rank']}: shard_volumes {r['shard_err']:.3e} from the replicated "
+                f"run whose forwards it replays")
+        fail_if(r["acc_bytes_shard"] > MGPU_SHARD_BYTES_MAX * r["acc_bytes_rep"],
+                f"rank {r['rank']}: sharded volumes {r['acc_bytes_shard']} bytes against "
+                f"{r['acc_bytes_rep']} replicated")
+        w = r["timing"]
+        batches = -(-(w["n_windows"] - w["n_empty"]) // BATCH)
+        fail_if(r["launches"]["scatter_cores"] != batches
+                or not 0 < r["launches"]["gather_windows"] <= batches,
+                f"rank {r['rank']}: K9/K10 {r['launches']['gather_windows']}/"
+                f"{r['launches']['scatter_cores']} launches for {batches} batches")
+        fail_if(not math.isfinite(r["dp_bf16_loss"]), f"rank {r['rank']}: bf16 loss not finite")
+        for k in DP_KERNELS:
+            fail_if(r["dp_bf16_launches"][k] == 0, f"rank {r['rank']}: bf16 step never "
+                                                  f"launched {k}")
+        rel = abs(r["dp_f32_loss"] - loss1) / abs(loss1)
+        r["dp_loss_rel"] = rel
+        fail_if(rel > DP_LOSS_REL, f"rank {r['rank']}: world 2 loss {r['dp_f32_loss']} against "
+                                   f"world 1's {loss1} ({rel:.2e} relative)")
+    fail_if(ranks[0]["digest"] != ranks[1]["digest"], "the ranks' volumes differ")
+    g = dp[0]["grads"]
+    cos = float(g @ grads1 / (np.linalg.norm(g) * np.linalg.norm(grads1)))
+    fail_if(cos < DP_GRAD_COS, f"world 2 gradient at cosine {cos} to world 1's")
+    fail_if(not np.array_equal(dp[0]["params"], dp[1]["params"]),
+            "the ranks' parameters differ after the step")
+    res["dp_grad_cos"] = cos
+    res["world2"] = ranks
+    t = ranks[0]["timing"]
+    res["world2_windows_per_s"] = (t["n_windows"] - t["n_empty"]) / t["inference"]
+    print(f"multi-GPU, world 2 ({ranks[0]['backend']}, ranks on {ranks[0]['device']} and "
+          f"{ranks[1]['device']}; {res['world2_s']:.1f} s): volumes within "
+          f"{max(r['world1_err'] for r in ranks):.3e} of world 1's (gate {MGPU_WORLD2_TOL}), "
+          f"equal on both ranks; shard_volumes equal to the bit to the replicated run whose "
+          f"forwards it replays (two replicated runs: "
+          f"{max(r['rep_spread'] for r in ranks):.3e}); bytes a rank "
+          f"{ranks[0]['acc_bytes_shard']} sharded / {ranks[0]['acc_bytes_rep']} replicated "
+          f"({ranks[0]['acc_bytes_shard'] / ranks[0]['acc_bytes_rep']:.3f}x); "
+          f"{res['world2_windows_per_s']:.3f} windows/s replicated; K9/K10 "
+          f"{[(r['launches']['gather_windows'], r['launches']['scatter_cores']) for r in ranks]}",
+          flush=True)
+    print(f"multi-GPU, data-parallel f32 step at world 2 against world 1 (base {DP_BASE}, "
+          f"{DP_BATCH} x {DP_WIN}^3, augmentation, blanking, dropout): loss "
+          f"{max(r['dp_loss_rel'] for r in ranks):.2e} relative, gradient cosine {cos:.7f}, "
+          f"parameters equal on both ranks; bf16 step losses "
+          f"{[r['dp_bf16_loss'] for r in ranks]}, launches "
+          f"{[r['dp_bf16_launches'] for r in ranks]}", flush=True)
+    t0 = time.time()
+    dry = dryrun.dryrun_multigpu(2, timeout=300)
+    res["dryrun_s"] = time.time() - t0
+    res["dryrun"] = dry
+    phase_s = time.time() - t_phase
+    res["phase_s"] = phase_s
+    detail["multigpu"] = res
+    print(f"multi-GPU phase: {phase_s:.1f} s (dry run {res['dryrun_s']:.1f} s; card: {smi})",
+          flush=True)
+    return phase_s
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2618,6 +2942,9 @@ def main() -> int:
         torch, g, detail)
     torch.backends.cudnn.allow_tf32 = True
     script_launches = scripts_path(torch, detail)
+    out.write_text(json.dumps(detail, indent=1))
+
+    multigpu_path(torch, args, detail, smi)
     out.write_text(json.dumps(detail, indent=1))
 
     def entry(name, route, source, replaces, launches, sites):

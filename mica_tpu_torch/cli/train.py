@@ -6,12 +6,21 @@ Flag-compatible with ``mica_tpu/cli/train.py``, plus ``--device``.  Each
 epoch writes ``<output_path>/mica_epoch_<n>[_best].pt`` (``torch.save``
 of the whole training state); ``--resume_train --model_checkpoint`` takes
 one back.
+
+On N cards of a host, data-parallel (``--batch_size`` is the global batch,
+a multiple of N):
+
+    torchrun --nproc_per_node N -m mica_tpu_torch.cli.train --data_path ...
+
+Each rank reads its rows of every global batch (the same shuffle on every
+rank, from the epoch); only rank 0 logs and saves.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 from pathlib import Path
 
 logger = logging.getLogger(__name__)
@@ -43,11 +52,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s - %(levelname)s - %(message)s")
     args = build_parser().parse_args(argv)
 
     import torch
+
+    from ..parallel import distributed
+
+    if "WORLD_SIZE" in os.environ or torch.distributed.is_initialized():
+        distributed.initialize(backend="gloo" if args.device == "cpu" else None)
+    main_rank = not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0
+    logging.basicConfig(level=logging.INFO if main_rank else logging.WARNING,
+                        format="%(asctime)s - %(levelname)s - %(message)s")
 
     from ..train import data as data_mod
     from ..train.trainer import Trainer, load_checkpoint, save_checkpoint
@@ -84,23 +99,27 @@ def main(argv=None) -> int:
         logger.info("resumed from epoch %d (val %.4f)", start_epoch, best_val)
 
     out = Path(args.output_path)
-    out.mkdir(parents=True, exist_ok=True)
-    metrics_log = MetricsLogger(args.log_dir, use_wandb=args.wandb)
+    if trainer.is_main:
+        out.mkdir(parents=True, exist_ok=True)
+    metrics_log = (MetricsLogger(args.log_dir, use_wandb=args.wandb) if trainer.is_main
+                   else None)
 
     for epoch in range(start_epoch, args.num_epochs):
         train_loader = data_mod.batch_iterator(
-            dataset, args.batch_size, train_ix, shuffle=True, seed=epoch)
+            dataset, args.batch_size, train_ix, shuffle=True, seed=epoch, mesh=trainer.mesh)
         state, train_metrics = trainer.run_epoch(state, train_loader, epoch)
         # keep the tail: a val split smaller than the batch would otherwise
         # give no batch at all
         val_loader = data_mod.batch_iterator(
-            dataset, args.batch_size, val_ix, shuffle=False, drop_last=False)
+            dataset, args.batch_size, val_ix, shuffle=False, drop_last=False,
+            mesh=trainer.mesh)
         val_metrics = trainer.run_validation(state, val_loader, epoch)
         logger.info("epoch %d: train %.4f val %.4f (%.1fs, %d steps)", epoch,
                     train_metrics.get("total_loss", float("nan")),
                     val_metrics.get("total_loss", float("nan")),
                     train_metrics["epoch_time"], train_metrics["steps"])
-        metrics_log.log_epoch(epoch, train_metrics, val_metrics, lr=trainer.scheduler.lr)
+        if metrics_log is not None:
+            metrics_log.log_epoch(epoch, train_metrics, val_metrics, lr=trainer.scheduler.lr)
         val_loss = val_metrics.get("total_loss", float("inf"))
         is_best = val_loss < best_val
         if is_best:
@@ -108,7 +127,8 @@ def main(argv=None) -> int:
         name = f"mica_epoch_{epoch}" + ("_best" if is_best else "")
         save_checkpoint(str(out / f"{name}.pt"), trainer, state, epoch, val_loss)
         trainer.scheduler.step(val_loss)
-    metrics_log.close()
+    if metrics_log is not None:
+        metrics_log.close()
     return 0
 
 

@@ -1,7 +1,9 @@
-"""Sliding-window inference engine on one card.
+"""Sliding-window inference engine, on one card or on every rank of a
+data-parallel world.
 
-Port of ``mica_tpu/infer/engine.py`` without the mesh, sharding and
-chunked dispatch.  The padded map stays on the device; each batch
+Port of ``mica_tpu/infer/engine.py`` without its chunked dispatch (a
+JAX remedy for per-dispatch RPC latency).  The padded map stays on the
+device; each batch
 
   1. gathers its 64^3 windows (density + bit-packed 24-channel AF3
      encoding, unpacked on the device) out of the padded volumes: K9,
@@ -19,13 +21,22 @@ All-zero windows give identical outputs, so in core blend the volumes
 start as a tiling of the all-zero window's core and only nonempty windows
 are computed.
 
+With a ``mesh`` (``parallel/mesh.py``), each rank computes its share of
+every batch's windows (K9 gathers only those), the computed outputs go to
+every rank (``parallel.distributed.exchange_rows``), and K10 pastes them:
+in the replicated mode every rank pastes every core and returns the same
+full volumes; with ``shard_volumes`` each rank holds an X slab of the
+volumes (the X core count padded to a multiple of the world size) and
+pastes only the cores whose X start falls in it, chosen on the host and
+shifted by the slab's offset.  Without a mesh nothing is exchanged.
+
 ``dump_windows_dir`` writes each window's outputs to ``.npz`` files, the
 empty windows' from the all-zero window: ``"compact"``, one file a window
 with what the forward returned; ``"reference"``, the original's per-grid
 layout, four files a window with the full window's ``data`` and its
 ``metadata``.  In the reference layout the forward returns full windows;
 K9 still gathers them and K10 pastes their cores.  Only the dump copies
-to the host.
+to the host.  Under a mesh only rank 0 writes dumps.
 """
 
 from __future__ import annotations
@@ -43,6 +54,8 @@ from ..models.convert import state_dict_from_jax_params
 from ..models.mica import MICA
 from ..ops.window import CORE, HALO, window_counts, window_starts
 from ..ops.window_copy import gather_windows, scatter_cores, starts_tensor
+from ..parallel import distributed
+from ..parallel.mesh import make_mesh, pad_to_multiple
 
 NUM_AA = 20
 NUM_AF_CHANNELS = 24
@@ -167,20 +180,37 @@ def _as_state_dict(params) -> Mapping:
     return state_dict_from_jax_params(params)
 
 
+
+
 class SlidingWindowPredictor:
     """Batched sliding-window predictor for arbitrary-size volumes."""
 
     def __init__(self, params_or_state_dict, batch_size: int = 8,
                  dtype: torch.dtype = torch.bfloat16, base_filters: int = 64,
                  core: int = CORE, halo: int = HALO, blend: str = "core",
-                 device=None):
+                 device=None, mesh=None, use_mesh: bool = False,
+                 shard_volumes: bool = False):
         """``params_or_state_dict``: a ``MICA`` module, a torch state dict
         or a JAX parameter tree.  ``blend``: 'core' pastes each window's
         core; 'average' accumulates full windows and divides by the count.
-        ``device`` None means the card, and raises where there is none."""
+        ``device`` None means the card (the mesh's, given a mesh), and
+        raises where there is none.
+
+        ``mesh``: the data-parallel world (``parallel.mesh.make_mesh``;
+        ``use_mesh`` makes it when none is given); ``batch_size`` is then
+        the global batch, rounded up to a multiple of the world size.
+        ``shard_volumes``: each rank keeps an X slab of the volumes, not
+        the whole (needs a mesh and blend='core')."""
         if blend not in ("core", "average"):
             raise ValueError(f"unknown blend mode {blend!r}")
-        self.device = resolve_device(device)
+        if mesh is None and use_mesh:
+            mesh = make_mesh(device)
+        self.shard_volumes = bool(shard_volumes)
+        if self.shard_volumes and (mesh is None or blend != "core"):
+            raise ValueError("shard_volumes requires a mesh and blend='core'")
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None and device is None
+                                     else device)
         self.blend = blend
         if isinstance(params_or_state_dict, MICA):
             model = params_or_state_dict
@@ -192,9 +222,16 @@ class SlidingWindowPredictor:
         self.core, self.halo = int(core), int(halo)
         self.window = self.core + 2 * self.halo
         self.batch_size = int(batch_size)
+        if mesh is not None:
+            self.batch_size = pad_to_multiple(self.batch_size, mesh.size)
         self.timing: Dict[str, float] = {}
         self.n_forwards = 0
         self._zero_cores: Dict = {}
+
+    @property
+    def _exchanges(self) -> bool:
+        """Ranks exchange outputs: a process group is up."""
+        return self.mesh is not None and self.mesh.distributed
 
     @torch.no_grad()
     def _forward(self, windows: torch.Tensor, af: Optional[torch.Tensor], full: bool):
@@ -211,6 +248,8 @@ class SlidingWindowPredictor:
         return bb_p[..., 0], ca_p[..., 0], aa_p
 
     def _zero_core(self, with_af: bool, af_float: bool, full: bool):
+        """The all-zero window's outputs; under a mesh rank 0's, so every
+        rank tiles the same values."""
         key = (with_af, af_float, full)
         if key not in self._zero_cores:
             w = self.window
@@ -220,8 +259,17 @@ class SlidingWindowPredictor:
                 af = (torch.zeros((1, w, w, w, NUM_AF_CHANNELS), device=self.device)
                       if af_float else torch.zeros((1, w, w, w), dtype=torch.int32,
                                                    device=self.device))
-            self._zero_cores[key] = tuple(t[0] for t in self._forward(wins, af, full))
+            z = tuple(t[0] for t in self._forward(wins, af, full))
+            if self._exchanges:
+                distributed.broadcast_(z)
+            self._zero_cores[key] = z
         return self._zero_cores[key]
+
+    def _no_rows(self, full: bool):
+        """A rank's outputs when a short batch leaves it no window."""
+        s = self.window if full else self.core
+        z = torch.empty((0, s, s, s), device=self.device)
+        return z, z, torch.empty((0, s, s, s, NUM_AA), device=self.device)
 
     def predict_volume(self, volume: np.ndarray,
                        af_encoding: Optional[np.ndarray] = None,
@@ -234,7 +282,12 @@ class SlidingWindowPredictor:
         ``amino_acid_probability`` (20,X,Y,Z) and ``amino_acid_prediction``
         (X,Y,Z; argmax 0..19) as numpy arrays, or with ``keep_on_device``
         as tensors on the predictor's device (nothing is copied to the
-        host; candidate extraction reads them there).
+        host; candidate extraction reads them there).  Under a mesh every
+        rank calls this together and gets the same volumes; with
+        ``shard_volumes`` the numpy volumes are gathered slab by slab
+        through the host, and ``keep_on_device`` returns this rank's slab
+        (its X rows inside the volume) with its first row under
+        ``x_offset``.
 
         ``dump_windows_dir``: also write every window's outputs there in
         ``dump_format``, ``"compact"`` (``win_i{i}_j{j}_k{k}.npz``: what
@@ -248,8 +301,12 @@ class SlidingWindowPredictor:
             raise ValueError(f"unknown dump_format {dump_format!r}")
         dump_dir = None if dump_windows_dir is None else Path(dump_windows_dir)
         dump_reference = dump_dir is not None and dump_format == "reference"
+        if dump_reference and self.shard_volumes:
+            raise ValueError("reference-layout dumps need replicated outputs")
         t0 = time.time()
         dev = self.device
+        mesh, exchanges = self.mesh, self._exchanges
+        writes = mesh is None or mesh.is_main
         core_n, halo, win = self.core, self.halo, self.window
         shape = tuple(volume.shape)
         counts = window_counts(shape, core_n)
@@ -289,6 +346,12 @@ class SlidingWindowPredictor:
         empty_starts = starts[~nonempty]
         self.timing["n_empty"] = int(len(empty_starts))
 
+        # this rank's X slab of the volumes: all of them unless sharded
+        x0, x_local = 0, padded_shape[0]
+        if self.shard_volumes:
+            x_local = pad_to_multiple(counts[0], mesh.size) // mesh.size * core_n
+            x0 = mesh.rank * x_local
+
         average = self.blend == "average"
         full = average or dump_reference
         forwards0 = self.n_forwards
@@ -300,12 +363,16 @@ class SlidingWindowPredictor:
             ca_v = torch.zeros(acc_shape, device=dev)
             aa_v = torch.zeros(acc_shape + (NUM_AA,), device=dev)
             cnt_v = torch.zeros(acc_shape, device=dev)
+            vols = (bb_v, ca_v, aa_v, cnt_v)
         else:
-            reps = counts
+            reps = (x_local // core_n,) + tuple(counts[1:])
             zc = tuple(_core_of(v, halo, core_n, batched=False) for v in z) if full else z
             bb_v = zc[0].repeat(reps)
             ca_v = zc[1].repeat(reps)
             aa_v = zc[2].repeat(reps + (1,))
+            vols = (bb_v, ca_v, aa_v)
+        self.timing["acc_bytes_per_device"] = int(sum(v.numel() * v.element_size()
+                                                      for v in vols))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.timing["setup"] = time.time() - t0
@@ -318,16 +385,18 @@ class SlidingWindowPredictor:
                 ca_v[x:x + w, y:y + w, zz:zz + w] += ca_c
                 aa_v[x:x + w, y:y + w, zz:zz + w] += aa_c
                 cnt_v[x:x + w, y:y + w, zz:zz + w] += 1.0
-            else:
-                c = core_n
+            elif x0 <= x < x0 + x_local:
+                c, x = core_n, x - x0
                 bb_v[x:x + c, y:y + c, zz:zz + c] = bb_c
                 ca_v[x:x + c, y:y + c, zz:zz + c] = ca_c
                 aa_v[x:x + c, y:y + c, zz:zz + c] = aa_c
 
-        if dump_dir is not None:
+        if dump_dir is not None and writes:
             dump_dir.mkdir(parents=True, exist_ok=True)
 
         def dump(outs, batch):
+            if dump_dir is None or not writes:
+                return
             bb_c, ca_c, aa_c = (v.cpu().numpy() for v in outs)
             for i, s in enumerate(batch):
                 _dump_window(dump_dir, dump_reference, bb_c[i], ca_c[i], aa_c[i], s,
@@ -339,36 +408,51 @@ class SlidingWindowPredictor:
         if copy_kernels and len(compute_starts):
             # a window's origin in the padded frame is its core's start
             dev_starts = starts_tensor(compute_starts, padded_map.shape, win, dev)
+            # the cores K10 pastes into this rank's slab, shifted into it;
+            # starts run x-major, so a batch's share is one run of rows
+            in_slab = (compute_starts[:, 0] >= x0) & (compute_starts[:, 0] < x0 + x_local)
+            slab_starts = dev_starts
+            if self.shard_volumes:
+                slab_starts = starts_tensor(compute_starts[in_slab] - np.array([x0, 0, 0]),
+                                            bb_v.shape, core_n, dev)
+            slab_before = np.concatenate([[0], np.cumsum(in_slab)])
         for ofs in range(0, len(compute_starts), bsz):
             batch = compute_starts[ofs:ofs + bsz]
-            if copy_kernels:
-                st = dev_starts[ofs:ofs + bsz]
-                got = gather_windows(padded_map, padded_af, st, win)
+            mine = mesh.rows(len(batch)) if mesh is not None else slice(0, len(batch))
+            if mine.stop == mine.start:
+                outs = self._no_rows(full)
+            elif copy_kernels:
+                got = gather_windows(padded_map, padded_af,
+                                     dev_starts[ofs + mine.start:ofs + mine.stop], win)
                 wins, afs = got if with_af else (got, None)
                 outs = self._forward(wins, afs, full)
-                if dump_dir is not None:
-                    dump(outs, batch)
-                cores = tuple(_core_of(v, halo, core_n) for v in outs) if full else outs
-                scatter_cores((bb_v, ca_v, aa_v), tuple(c.contiguous() for c in cores),
-                              st, len(batch), core_n)
-                continue
-            wins = torch.stack([padded_map[x:x + win, y:y + win, zz:zz + win]
-                                for x, y, zz in batch])
-            afs = None
-            if with_af:
-                afs = torch.stack([padded_af[x:x + win, y:y + win, zz:zz + win]
-                                   for x, y, zz in batch])
-            outs = self._forward(wins, afs, full)
-            if dump_dir is not None:
-                dump(outs, batch)
+            else:
+                wins = torch.stack([padded_map[x:x + win, y:y + win, zz:zz + win]
+                                    for x, y, zz in batch[mine]])
+                afs = None
+                if with_af:
+                    afs = torch.stack([padded_af[x:x + win, y:y + win, zz:zz + win]
+                                       for x, y, zz in batch[mine]])
+                outs = self._forward(wins, afs, full)
+            if exchanges:
+                outs = distributed.exchange_rows(outs, mine, len(batch))
+            dump(outs, batch)
             if full and not average:
                 outs = tuple(_core_of(v, halo, core_n) for v in outs)
+            if copy_kernels:
+                a, b = slab_before[ofs], slab_before[ofs + len(batch)]
+                if b > a:
+                    r0 = int(np.argmax(in_slab[ofs:ofs + len(batch)]))
+                    scatter_cores((bb_v, ca_v, aa_v),
+                                  tuple(c[r0:r0 + b - a].contiguous() for c in outs),
+                                  slab_starts[a:b], int(b - a), core_n)
+                continue
             for i, s in enumerate(batch):
                 paste(outs[0][i], outs[1][i], outs[2][i], s)
         if average:
             for s in empty_starts:
                 paste(z[0], z[1], z[2], s)
-        if dump_dir is not None and len(empty_starts):
+        if dump_dir is not None and writes and len(empty_starts):
             # identical (all-zero) inputs give identical outputs
             zb, zca, zaa = (v.cpu().numpy() for v in z)
             for s in empty_starts:
@@ -386,6 +470,10 @@ class SlidingWindowPredictor:
             sl = tuple(slice(halo, halo + s) for s in shape)
         else:
             sl = tuple(slice(0, s) for s in shape)
+        if self.shard_volumes:
+            out = self._gather_slabs((bb_v, ca_v, aa_v), shape, x0, keep_on_device)
+            self.timing["reconstruction"] = time.time() - t2
+            return out
         aa_c = aa_v[sl]
         out = {
             "backbone_probability": bb_v[sl],
@@ -399,3 +487,32 @@ class SlidingWindowPredictor:
             out = {k: v.cpu().numpy() for k, v in out.items()}
         self.timing["reconstruction"] = time.time() - t2
         return out
+
+    def _gather_slabs(self, slabs, shape, x0: int, keep_on_device: bool) -> Dict:
+        """The sharded volumes' outputs: this rank's slab on the device, or
+        the whole volumes in numpy, each rank's slab broadcast in turn and
+        copied to the host."""
+        mesh = self.mesh
+        x_local = slabs[0].shape[0]
+        if keep_on_device:
+            rows = slice(0, max(0, min(x_local, shape[0] - x0)))
+            bb, ca, aa = (v[rows, :shape[1], :shape[2]] for v in slabs)
+            return {"backbone_probability": bb.contiguous(),
+                    "carbon_alpha_probability": ca.contiguous(),
+                    "amino_acid_probability": torch.movedim(aa, -1, 0).contiguous(),
+                    "amino_acid_prediction": torch.argmax(aa, dim=-1),
+                    "x_offset": x0}
+        host = [np.empty((mesh.size * x_local,) + tuple(v.shape[1:]), np.float32)
+                for v in slabs]
+        for r in range(mesh.size):
+            bufs = list(slabs) if r == mesh.rank else [torch.empty_like(v) for v in slabs]
+            if self._exchanges:
+                distributed.broadcast_(bufs, src=r)
+            for h, b in zip(host, bufs):
+                h[r * x_local:(r + 1) * x_local] = b.cpu().numpy()
+        sl = tuple(slice(0, s) for s in shape)
+        aa = np.moveaxis(host[2][sl], -1, 0)
+        return {"backbone_probability": host[0][sl],
+                "carbon_alpha_probability": host[1][sl],
+                "amino_acid_probability": aa,
+                "amino_acid_prediction": np.argmax(aa, axis=0)}

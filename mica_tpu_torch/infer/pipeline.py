@@ -85,6 +85,7 @@ def predict_map(
     device=None,
     dump_windows_dir: Optional[str] = None,
     dump_format: str = "compact",
+    mesh=None,
 ) -> Dict[str, object]:
     """End-to-end: map file (+ optional docked AF3 model) -> prediction
     volumes.  ``params``: a torch state dict, a JAX parameter tree or a
@@ -93,8 +94,15 @@ def predict_map(
     derives the batch from the card's memory; ``core=0`` picks the window
     geometry with the fewest computed voxels.  ``dump_windows_dir`` and
     ``dump_format`` write every window's outputs
-    (``SlidingWindowPredictor.predict_volume``)."""
-    dev = resolve_device(device if predictor is None else predictor.device)
+    (``SlidingWindowPredictor.predict_volume``).  ``mesh``: the
+    data-parallel world the predictor splits each batch over
+    (``parallel.mesh``); every rank calls this together and gets the same
+    volumes."""
+    if predictor is not None:
+        device = predictor.device
+    elif device is None and mesh is not None:
+        device = mesh.device
+    dev = resolve_device(device)
     prepared = prepare_map(map_path, device=dev)
     if predictor is not None:
         core, halo, batch_size = predictor.core, predictor.halo, predictor.batch_size
@@ -112,7 +120,7 @@ def predict_map(
         predictor = SlidingWindowPredictor(
             params, batch_size=batch_size,
             dtype=dtype if dtype is not None else torch.bfloat16,
-            base_filters=base_filters, core=core, halo=halo, device=dev)
+            base_filters=base_filters, core=core, halo=halo, device=dev, mesh=mesh)
     out = predictor.predict_volume(prepared.volume, encoding, dump_windows_dir=dump_windows_dir,
                                    dump_format=dump_format)
     out["prepared_map"] = prepared

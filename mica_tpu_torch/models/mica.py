@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -126,10 +126,16 @@ class Dropout:
     one, so a checkpointed unit builds a new ``Dropout`` from the same seed
     and draws the same masks again.  Kept values are x / (1 - rate) with
     1 - rate rounded to x's dtype first, as flax's ``x / keep_prob`` takes
-    its Python scalar; only the quotient is rounded after that."""
+    its Python scalar; only the quotient is rounded after that.
 
-    def __init__(self, seed: int):
+    ``rows`` = (first, total): x holds rows first.. of a batch of ``total``
+    split over data-parallel ranks; the masks are drawn for the whole batch
+    and sliced, so every rank drops as one process would (the masks are
+    (B, C) or smaller, so the whole batch's cost little)."""
+
+    def __init__(self, seed: int, rows: Optional[Tuple[int, int]] = None):
         self.seed = seed
+        self.rows = rows
         self._gen: Optional[torch.Generator] = None
 
     def _drop(self, x: torch.Tensor, shape, rate: float) -> torch.Tensor:
@@ -137,7 +143,12 @@ class Dropout:
             return x
         if self._gen is None:
             self._gen = torch.Generator(device=x.device).manual_seed(self.seed)
-        keep = torch.rand(shape, generator=self._gen, device=x.device) >= rate
+        if self.rows is None:
+            keep = torch.rand(shape, generator=self._gen, device=x.device) >= rate
+        else:
+            first, total = self.rows
+            keep = torch.rand((total,) + tuple(shape[1:]), generator=self._gen,
+                              device=x.device)[first:first + shape[0]] >= rate
         keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype).item()
         return torch.where(keep, x / keep_prob, 0)
 
@@ -149,12 +160,16 @@ class Dropout:
         return self._drop(x, x.shape, rate)
 
 
-def _unit(module: nn.Module, x: torch.Tensor, rate: float, seed: Optional[int],
+# a unit's dropout: its seed and ``Dropout``'s rows (None in one process)
+DropSpec = Tuple[int, Optional[Tuple[int, int]]]
+
+
+def _unit(module: nn.Module, x: torch.Tensor, rate: float, spec: Optional[DropSpec],
           train: bool, remat: bool, kernels: bool) -> torch.Tensor:
     """``module(x, rate, drop, train, kernels)`` with its own ``Dropout``,
     under ``torch.utils.checkpoint`` when ``remat``."""
     def run(x):
-        return module(x, rate, None if seed is None else Dropout(seed), train, kernels)
+        return module(x, rate, None if spec is None else Dropout(*spec), train, kernels)
 
     if remat:
         return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
@@ -408,16 +423,17 @@ class EncoderStage(nn.Module):
         self.transition = _slots(_0=Conv(ci, co, 3))
 
     def forward(self, x: torch.Tensor, rate: float = 0.0,
-                seeds: Sequence[Optional[int]] = (None, None, None), train: bool = False,
-                remat: bool = False, kernels: bool = True) -> torch.Tensor:
-        """``seeds``: the dropout seeds of the RDB, the DualAttention and
+                seeds: Sequence[Optional[DropSpec]] = (None, None, None),
+                train: bool = False, remat: bool = False,
+                kernels: bool = True) -> torch.Tensor:
+        """``seeds``: the dropout specs of the RDB, the DualAttention and
         the transition; ``remat`` checkpoints the RDB and the
         DualAttention."""
         x = _unit(self.dense_block, x, rate, seeds[0], train, remat, kernels)
         x = _unit(self.dual_attn, x, rate, seeds[1], train, remat, kernels)
         t = self.transition["0"]
         h = _conv_in_relu(train, kernels, [x], t.weight)([x], t.weight, t.bias)
-        return h if seeds[2] is None else Dropout(seeds[2]).channels(h, rate * 0.5)
+        return h if seeds[2] is None else Dropout(*seeds[2]).channels(h, rate * 0.5)
 
 
 class FPN(nn.Module):
@@ -537,10 +553,14 @@ class MICA(nn.Module):
 
     def forward(self, exp_map: torch.Tensor, af: Optional[torch.Tensor] = None,
                 out_slice: Optional[slice] = None, *, dropout_rate: float = 0.0,
-                train: bool = False, generator: Optional[torch.Generator] = None):
+                train: bool = False, generator: Optional[torch.Generator] = None,
+                batch_rows: Optional[Tuple[int, int]] = None):
         """``train`` takes the differentiable kernels; with
         ``dropout_rate`` > 0 it also drops, drawing one seed per unit from
         ``generator`` (a CPU generator draws them without a device sync).
+        ``batch_rows`` = (first, total): the input is rows first.. of a
+        data-parallel batch of ``total``, and each unit's masks are that
+        batch's rows (``Dropout``).
         The route (kernels in bf16, library ops otherwise) is decided here
         once, from ``self.dtype``; each K1 site then checks its widths
         (``k1_takes``)."""
@@ -549,14 +569,15 @@ class MICA(nn.Module):
         if train and dropout_rate > 0.0:
             if generator is None:
                 raise ValueError("dropout needs a generator")
-            seeds = torch.randint(0, 2 ** 62, (_N_UNITS,), generator=generator,
-                                  device=generator.device).tolist()
+            seeds = [(s, batch_rows) for s in torch.randint(
+                0, 2 ** 62, (_N_UNITS,), generator=generator,
+                device=generator.device).tolist()]
         rate = dropout_rate if train else 0.0
         remat = self.remat and train
         kernels = kernel_route(dt)
 
         def drop(i):
-            return None if seeds[i] is None else Dropout(seeds[i])
+            return None if seeds[i] is None else Dropout(*seeds[i])
 
         def heads(*parts):
             return self.heads(parts, out_slice, 2 * rate, drop(11), train, kernels)

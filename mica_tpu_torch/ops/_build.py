@@ -14,6 +14,15 @@ kept in ``logs``.  The library is loaded with ``ctypes``; callers pass pointers
 from ``Tensor.data_ptr()`` and the current stream as Python ints.
 The device facts the kernels' plans share (``SMEM_MAX``, ``sm_count``)
 live here too.
+
+Every C entry launches on the calling thread's current device, on the
+stream the wrapper passes (``torch.cuda.current_stream(x.device)``), and
+K1, K3, K7 and K8 set their shared-memory attribute once a process: so a
+process drives one card, its current device.  Under a process group that
+is the rank's own card, which ``parallel.distributed.initialize`` makes
+current before any launch.  A tensor on another card should make the
+launch fail, its stream being that card's.  (Checked by review only: the
+machine that runs the card tests has one card.)
 """
 
 from __future__ import annotations
@@ -114,7 +123,8 @@ def function(lib: str, name: str, argtypes: list):
     """A C function of ``csrc/<lib>.cu`` with its argument types declared
     (pointers and the stream as ``c_void_p``) and an int error code, looked
     up and declared on the first call only (a wrapper's host time matters
-    where its kernel is short)."""
+    where its kernel is short).  It launches on the current device (see
+    the module's docstring)."""
     fn = _functions.get((lib, name))
     if fn is None:
         fn = getattr(load(lib), name)

@@ -18,7 +18,7 @@ the distributions and the spatial helpers, not the draws, against JAX.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -72,6 +72,11 @@ def _uniform(u: float, lo: float, hi: float) -> float:
     return lo + (hi - lo) * u
 
 
+def _draws_noise(u) -> bool:
+    """Whether a sample with draws ``u`` takes its noise from the generator."""
+    return u[GATE] < AUGMENT_PROB and u[NOISE] < NOISE_PROB
+
+
 def augment_sample(draws, gen: torch.Generator, density: torch.Tensor, af3: torch.Tensor,
                    targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One sample: density (1, D, H, W), af3 (24, D, H, W), targets
@@ -79,7 +84,7 @@ def augment_sample(draws, gen: torch.Generator, density: torch.Tensor, af3: torc
     u = draws
     if not u[GATE] < AUGMENT_PROB:
         return density, af3, targets
-    if u[NOISE] < NOISE_PROB:
+    if _draws_noise(u):
         density = density + GAUSSIAN_NOISE_STD * torch.randn(
             density.shape, generator=gen, device=density.device, dtype=density.dtype)
     if u[BRIGHT] < INTENSITY_PROB:
@@ -110,11 +115,25 @@ def augment_sample(draws, gen: torch.Generator, density: torch.Tensor, af3: torc
 
 
 def augment_batch(gen: torch.Generator, density: torch.Tensor, af3: torch.Tensor,
-                  targets: torch.Tensor):
+                  targets: torch.Tensor, first: int = 0, total: Optional[int] = None):
     """Per-sample augmentation of density (N, 1, D, H, W), af3
     (N, 24, D, H, W) and targets (N, 3, D, H, W), on their device, drawing
-    from ``gen`` (on that device).  Returns new tensors."""
+    from ``gen`` (on that device).  Returns new tensors.
+
+    ``first``, ``total``: the N samples are rows first.. of a batch of
+    ``total`` split over data-parallel ranks.  The draws are made for the
+    whole batch in its order (the other rows' noise drawn and dropped), so
+    each row gets what one process would give it and every rank's
+    generator stays in step."""
     n = density.shape[0]
-    draws = torch.rand((n, N_DRAWS), generator=gen, device=density.device).tolist()
-    outs = [augment_sample(draws[i], gen, density[i], af3[i], targets[i]) for i in range(n)]
+    total = n if total is None else total
+    draws = torch.rand((total, N_DRAWS), generator=gen, device=density.device).tolist()
+    outs = []
+    for i in range(total):
+        if first <= i < first + n:
+            j = i - first
+            outs.append(augment_sample(draws[i], gen, density[j], af3[j], targets[j]))
+        elif _draws_noise(draws[i]):
+            torch.randn(density.shape[1:], generator=gen, device=density.device,
+                        dtype=density.dtype)
     return tuple(torch.stack([o[k] for o in outs]) for k in range(3))

@@ -11,7 +11,9 @@
     encoding, window everything on the device and keep the windows whose
     density max is >= 0.01 (the filter that defines the original MICA's
     training set); it replaces the original's shell pipeline;
-  * ``train_val_split``, ``batch_iterator`` and ``synthetic_batch``.
+  * ``train_val_split``, ``batch_iterator`` and ``synthetic_batch``;
+    under a data-parallel mesh ``batch_iterator`` reads only the rank's
+    rows of each global batch (``RowShard``).
 
 Augmentation and AF3 blanking run on the device in the trainer; the
 loader only moves bytes.
@@ -35,6 +37,16 @@ from ..ops.rasterize import CHANNEL_NAMES, rasterize_af3_encoding
 from ..ops.window import extract_windows
 
 Batch = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]
+
+
+@dataclasses.dataclass
+class RowShard:
+    """A data-parallel rank's rows ``first..`` of a global batch of
+    ``total`` rows; ``rows`` is laid out as a ``Batch``."""
+
+    rows: Batch
+    first: int
+    total: int
 
 
 class NpzGridsDataset:
@@ -133,16 +145,29 @@ def train_val_split(n: int, val_fraction: float = 0.2,
 
 
 def batch_iterator(dataset, batch_size: int, indices: Optional[np.ndarray] = None,
-                   shuffle: bool = True, seed: int = 0,
-                   drop_last: bool = True) -> Iterator[Batch]:
-    """Yield numpy batches (density, af3, bb, ca, aa)."""
+                   shuffle: bool = True, seed: int = 0, drop_last: bool = True,
+                   mesh=None) -> Iterator:
+    """Yield numpy batches (density, af3, bb, ca, aa).  Under a distributed
+    ``mesh`` (every rank draws the same shuffle from ``seed``) a batch that
+    divides the world comes as this rank's ``RowShard``, the only rows it
+    reads; one that does not comes whole, for every rank to evaluate."""
     idx = np.arange(len(dataset)) if indices is None else np.asarray(indices)
     if shuffle:
         idx = np.random.default_rng(seed).permutation(idx)
     stop = len(idx) - (len(idx) % batch_size if drop_last else 0)
+
+    def read(ix):
+        samples = [dataset[int(i)] for i in ix]
+        return tuple(np.stack([s[f] for s in samples]) for f in range(5))
+
     for ofs in range(0, stop, batch_size):
-        samples = [dataset[int(i)] for i in idx[ofs:ofs + batch_size]]
-        yield tuple(np.stack([s[f] for s in samples]) for f in range(5))
+        ix = idx[ofs:ofs + batch_size]
+        if mesh is None or not mesh.distributed or len(ix) % mesh.size:
+            yield read(ix)
+            continue
+        per = len(ix) // mesh.size
+        yield RowShard(read(ix[mesh.rank * per:(mesh.rank + 1) * per]), mesh.rank * per,
+                       len(ix))
 
 
 def synthetic_batch(batch_size: int = 4, size: int = 64, seed: int = 0) -> Batch:

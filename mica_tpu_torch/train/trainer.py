@@ -1,4 +1,5 @@
-"""Training loop on one device (port of ``mica_tpu/train/trainer.py``).
+"""Training loop, on one card or data-parallel over ranks (port of
+``mica_tpu/train/trainer.py``).
 
   * Adam (``torch.optim.Adam``; its defaults are optax's), lr 1e-4, set
     in the optimizer's param groups from a host-side ReduceLROnPlateau
@@ -19,8 +20,26 @@
     buffer, step, epoch and both generators, so a resumed run takes the
     same next step.
 
-Metrics stay on the device and are read once per epoch.  The mesh of
-the JAX trainer (data parallelism over devices) is not ported yet.
+Metrics stay on the device and are read once per epoch.
+
+Data parallelism, the JAX trainer's mesh (on by default, as there): under
+an initialized process group each rank takes its rows of every global
+batch (``parallel.distributed.local_batch_slice``, or a
+``data.RowShard``), the parameters start equal (rank 0's are broadcast)
+and stay equal.  The weighted cross-entropies divide by ``sum_i w[y_i]``
+over the whole batch, so a rank's loss is a partial with the all-reduced
+normalisers, and the gradients are summed over the ranks, not averaged:
+one all-reduce of a flat buffer after the backward, which also sums the
+loss metrics.  (DDP would average; its loss would have to be scaled by the
+world size, with ``no_sync`` on all microbatches but the last, for the same
+result.)  Clipping and Adam then see the same gradients on every rank.
+Augmentation, AF3 blanking and dropout draw for the whole batch and take
+the rank's rows, so a world of N gives the step one process gives the
+batch (with ``microbatch`` each rank's microbatches draw their own
+dropout seeds).  Validation reduces across ranks, and a batch that does not
+divide the world is evaluated whole on every rank, so the plateau
+scheduler reads the same loss everywhere.  Only rank 0 saves.  Without a
+process group the world is this process and nothing is exchanged.
 """
 
 from __future__ import annotations
@@ -34,7 +53,10 @@ import torch
 
 from ..device import resolve_device
 from ..models.mica import MICA, dropout_rate_for_epoch, exact_f32
+from ..parallel import distributed
+from ..parallel.mesh import make_mesh
 from . import augment
+from .data import RowShard
 from .loss import class_weight_denominators, multi_task_loss, task_lambdas
 
 logger = logging.getLogger(__name__)
@@ -109,12 +131,20 @@ class Trainer:
     def __init__(self, base_filters: int = 64, lr: float = 1e-4,
                  dtype: torch.dtype = torch.bfloat16, label_smoothing: float = 0.0,
                  exp_only_prob: float = 0.4, use_augmentation: bool = True,
-                 seed: int = 2022, microbatch: Optional[int] = None, device=None):
-        """``device`` None means the card (raises where there is none); the
-        CPU runs the kernels' plain versions.  bf16 compute takes the
-        kernels; f32 takes the library route with TF32 off, over the
-        backward too (``train_step``), as the JAX package's f32 does."""
-        self.device = resolve_device(device)
+                 seed: int = 2022, microbatch: Optional[int] = None, device=None,
+                 mesh=None, use_mesh: bool = True):
+        """``device`` None means the card (the mesh's, given a mesh; raises
+        where there is none); the CPU runs the kernels' plain versions.
+        bf16 compute takes the kernels; f32 takes the library route with
+        TF32 off, over the backward too (``train_step``), as the JAX
+        package's f32 does.  ``mesh``: the data-parallel world
+        (``parallel.mesh``); ``use_mesh`` makes it from the process group
+        when none is given."""
+        if mesh is None and use_mesh:
+            mesh = make_mesh(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None and device is None
+                                     else device)
         self.seed = seed
         self.model = MICA(base=base_filters, dtype=dtype, remat=True).to(self.device)
         self.scheduler = PlateauScheduler(lr)
@@ -125,10 +155,46 @@ class Trainer:
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.dropout_gen = torch.Generator().manual_seed(seed + 1)
 
+    @property
+    def _dp(self) -> bool:
+        """Ranks exchange: a process group is up."""
+        return self.mesh is not None and self.mesh.distributed
+
+    @property
+    def is_main(self) -> bool:
+        """This process logs and saves (rank 0, or the only one)."""
+        return self.mesh is None or self.mesh.is_main
+
+    def _check_batch_divisible(self, n: int) -> None:
+        """Each rank takes batch / world rows: fail readably otherwise."""
+        if self.mesh is not None and n % self.mesh.size:
+            raise ValueError(
+                f"batch size {n} is not divisible by the {self.mesh.size}-rank world; "
+                f"round the batch up (parallel.mesh.pad_to_multiple) or drop the "
+                f"remainder")
+
+    def _rows(self, batch, whole_if_uneven: bool = False):
+        """(this rank's rows, first row, global rows, split) of a global batch
+        or a ``RowShard``.  A batch that does not divide the world raises,
+        or with ``whole_if_uneven`` comes back whole (``split`` False)."""
+        if isinstance(batch, RowShard):
+            return batch.rows, batch.first, batch.total, True
+        n = len(batch[0])
+        if not self._dp:
+            return batch, 0, n, False
+        if n % self.mesh.size and whole_if_uneven:
+            return batch, 0, n, False
+        self._check_batch_divisible(n)
+        sl = distributed.local_batch_slice(n)
+        return [b[sl] for b in batch], sl.start, n, True
+
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
-        """Fresh xavier-normal weights (``MICA.init_weights``) and Adam."""
+        """Fresh xavier-normal weights (``MICA.init_weights``; under a
+        process group rank 0's on every rank) and Adam."""
         self.model.init_weights(torch.Generator(device=self.device).manual_seed(self.seed + 2))
+        if self._dp:
+            distributed.broadcast_([p.data for p in self.model.parameters()])
         return TrainState(
             optimizer=torch.optim.Adam(self.model.parameters(), lr=self.scheduler.lr),
             step=0,
@@ -142,23 +208,27 @@ class Trainer:
     def train_step(self, state: TrainState, batch, lambdas,
                    dropout_rate: float) -> Dict[str, torch.Tensor]:
         """One Adam step on ``batch`` = (density (N,D,H,W), af3
-        (N,24,D,H,W), bb, ca, aa (N,D,H,W) integer), numpy or tensors.
-        Updates the model and ``state`` in place; returns the step's
-        metrics as device tensors."""
+        (N,24,D,H,W), bb, ca, aa (N,D,H,W) integer), numpy or tensors: the
+        global batch, or under a process group this rank's ``RowShard`` of
+        it.  Updates the model and ``state`` in place; returns the step's
+        metrics as device tensors, the global batch's on every rank."""
         with exact_f32(self.model.dtype):
             return self._train_step(state, batch, lambdas, dropout_rate)
 
     def _train_step(self, state: TrainState, batch, lambdas,
                     dropout_rate: float) -> Dict[str, torch.Tensor]:
-        density, af3, bb, ca, aa = self._to_device(batch)
+        rows, first, total, split = self._rows(batch)
+        density, af3, bb, ca, aa = self._to_device(rows)
         dens = density[:, None].float()
         af3 = af3.float()
         targets = torch.stack([bb, ca, aa], dim=1)
         if self.use_augmentation:
-            dens, af3, targets = augment.augment_batch(self.gen, dens, af3, targets)
+            dens, af3, targets = augment.augment_batch(self.gen, dens, af3, targets,
+                                                       first, total)
         n = dens.shape[0]
         # random AF3 blanking: the sample trains on the map alone
-        zero = torch.rand(n, generator=self.gen, device=self.device) < self.exp_only_prob
+        zero = torch.rand(total, generator=self.gen,
+                          device=self.device)[first:first + n] < self.exp_only_prob
         af3 = torch.where(zero.reshape(-1, 1, 1, 1, 1), 0.0, af3)
         x = dens.movedim(1, -1).contiguous()
         af = af3.movedim(1, -1).contiguous()
@@ -172,10 +242,16 @@ class Trainer:
             slices = [slice(i, i + mb) for i in range(0, n, mb)]
         else:
             denoms, slices = None, [slice(0, n)]
+        if split:
+            # the normalisers of the whole batch: each rank's loss is a partial
+            d = torch.stack(class_weight_denominators(tgt))
+            distributed.all_reduce_sum_([d])
+            denoms = tuple(d)
         metrics: Dict[str, torch.Tensor] = {}
         for sl in slices:
             outs = model(x[sl], af[sl], dropout_rate=dropout_rate, train=True,
-                         generator=self.dropout_gen)
+                         generator=self.dropout_gen,
+                         batch_rows=(first + sl.start, total) if split else None)
             loss, met = multi_task_loss(outs, tuple(t[sl] for t in tgt), lambdas,
                                         self.label_smoothing, denoms)
             loss.backward()
@@ -185,6 +261,11 @@ class Trainer:
             metrics[k] = metrics[k] / len(slices)
 
         grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if split:
+            # the gradients and losses of the whole batch: sums of the partials
+            losses = torch.stack([metrics[k] for k in _EPOCH_KEYS])
+            distributed.all_reduce_sum_(grads + [losses])
+            metrics.update(zip(_EPOCH_KEYS, losses))
         _, state.grad_norms, state.grad_count, norm, clipped = adaptive_clip(
             grads, state.grad_norms, state.grad_count)
         opt.step()
@@ -222,18 +303,30 @@ class Trainer:
     def run_validation(self, state: TrainState, loader: Iterable,
                        epoch: int) -> Dict[str, float]:
         """Mean validation metrics: the inference forward, no augmentation,
-        no blanking, no dropout."""
+        no blanking, no dropout.  Under a process group, the global batch's
+        on every rank: a batch that divides the world is split and reduced,
+        one that does not is evaluated whole by every rank."""
         lambdas = task_lambdas(epoch)
         self.model.eval()
         totals: Dict[str, torch.Tensor] = {}
         n = 0
         with torch.no_grad():
             for batch in loader:
-                density, af3, bb, ca, aa = self._to_device(batch)
+                rows, _, _, split = self._rows(batch, whole_if_uneven=True)
+                density, af3, bb, ca, aa = self._to_device(rows)
                 outs = self.model(density[..., None].float(),
                                   af3.float().movedim(1, -1).contiguous())
+                denoms = None
+                if split:
+                    d = torch.stack(class_weight_denominators((bb, ca, aa)))
+                    distributed.all_reduce_sum_([d])
+                    denoms = tuple(d)
                 _, metrics = multi_task_loss(outs, (bb, ca, aa), lambdas,
-                                             self.label_smoothing)
+                                             self.label_smoothing, denoms)
+                if split:
+                    losses = torch.stack([metrics[k] for k in _EPOCH_KEYS])
+                    distributed.all_reduce_sum_([losses])
+                    metrics.update(zip(_EPOCH_KEYS, losses))
                 n += 1
                 for k in _EPOCH_KEYS:
                     totals[k] = totals[k] + metrics[k] if k in totals else metrics[k]
@@ -270,7 +363,10 @@ class Trainer:
 
 def save_checkpoint(path: str, trainer: Trainer, state: TrainState, epoch: int,
                     val_loss: float) -> None:
-    """``torch.save`` of the whole training state."""
+    """``torch.save`` of the whole training state, by rank 0 alone under a
+    process group."""
+    if not trainer.is_main:
+        return
     torch.save(trainer.checkpoint_dict(state, epoch, val_loss), path)
 
 

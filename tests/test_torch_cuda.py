@@ -20,7 +20,9 @@ the host path in order and ``pred`` and to 1e-12 in ``coords`` and ``aa``.
 K11 and K13 are bitwise equal to their bf16 plain versions, in each mode
 and in place or not; K12's f32 sums stay within 1e-5 of the sum of the
 terms' magnitudes.  The f32 route of the engine (library convs, TF32 off)
-stays within 1e-4 of the CPU's probabilities.
+stays within 1e-4 of the CPU's probabilities.  The replicated engine
+through a one-rank NCCL group equals the plain engine to the bit (f32,
+cuDNN deterministic).
 """
 
 import pytest
@@ -750,3 +752,60 @@ def test_reference_dumps_on_the_card_go_through_the_copy_kernels(gen, tmp_path):
             rebuilt[..., i:i + di, j:j + dj, k:k + dk] = z["data"][..., 8:8 + di, 8:8 + dj,
                                                                    8:8 + dk]
         np.testing.assert_array_equal(rebuilt, out[key], err_msg=key)
+
+
+@pytest.fixture
+def nccl_world1(gen, tmp_path):
+    """A one-rank NCCL process group in this process, torn down after."""
+    from mica_tpu_torch.parallel import distributed
+
+    distributed.initialize(init_method=f"file://{tmp_path}/rendezvous", world_size=1, rank=0,
+                           backend="nccl", local_rank=0, timeout_seconds=120)
+    try:
+        yield distributed.global_mesh()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_resolve_device_under_a_group_is_the_local_ranks_card(nccl_world1):
+    from mica_tpu_torch.device import resolve_device
+
+    assert resolve_device(None) == torch.device("cuda", 0)
+    assert resolve_device("cuda") == torch.device("cuda", 0)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert nccl_world1.device == torch.device("cuda", 0) and nccl_world1.distributed
+
+
+def test_replicated_engine_at_world_1_on_nccl(nccl_world1):
+    """The replicated engine through NCCL at world size 1: K9 and K10 once
+    a computed batch, and the plain engine's volumes to the bit (f32 with
+    cuDNN's deterministic algorithms: bf16 runs differ from run to run,
+    K1's statistics being summed with atomics)."""
+    import numpy as np
+
+    from mica_tpu_torch.infer import engine
+    from mica_tpu_torch.models.mica import MICA
+    from mica_tpu_torch.ops import window_copy as wc
+
+    rng = np.random.default_rng(3)
+    vol = np.zeros((40, 30, 20), np.float32)
+    vol[2:30, 3:22, 1:15] = rng.random((28, 19, 14))
+    af = np.zeros((24, 40, 30, 20), np.float32)
+    af[:, 4:10, 4:9, 2:8] = rng.random((24, 6, 5, 6)) < 0.05
+    model = MICA(base=16).init_weights(torch.Generator().manual_seed(0))
+    kw = dict(batch_size=2, dtype=torch.float32, base_filters=16, core=16, halo=8)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = engine.SlidingWindowPredictor(model, **kw).predict_volume(vol, af)
+        pred = engine.SlidingWindowPredictor(model, mesh=nccl_world1, **kw)
+        before = dict(wc.launches)
+        got = pred.predict_volume(vol, af)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    batches = pred.timing["n_forwards"] - 1
+    assert batches >= 2
+    assert wc.launches["gather_windows"] == before["gather_windows"] + batches
+    assert wc.launches["scatter_cores"] == before["scatter_cores"] + batches
+    for k in ("backbone_probability", "carbon_alpha_probability", "amino_acid_probability"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
