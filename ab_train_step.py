@@ -6,10 +6,11 @@
 Runs PARENT, CHANGE, CHANGE, PARENT (CHANGE defaults to this checkout),
 each in a process of its own that imports ``chip_smoke`` and
 ``mica_tpu_torch`` from that checkout and builds its kernels there.  A run
-first times K4, K5 and K6 alone at each width of a training step (8 x
-64^3 bf16) and K8 at 8 x 64^3 and 2 x 33 x 35 x 37 (C 128, the weight
-packed by the checkout's own ``MultiScaleInput``), each the mean of 20
-launches after a warm-up (``chip_smoke.cuda_ms``); then
+first times K1 alone at each site of a forward (the statistics' sums
+included where the forward takes them), K4, K5 and K6 alone at each
+width of a training step (8 x 64^3 bf16) and K8 at 8 x 64^3 and 2 x 33 x
+35 x 37 (C 128, the weight packed by the checkout's own
+``MultiScaleInput``), each the mean of 20 launches after a warm-up (``chip_smoke.cuda_ms``); then
 ``chip_smoke.py``'s training phase (``training_path``: batch 8 x 64^3 at
 base 64, bf16, 2 warm-up steps, 5 timed, 8 on a fixed batch), then 3 more
 rounds of 5 steps, each timed on the host clock up to a synchronize, then
@@ -29,13 +30,35 @@ from pathlib import Path
 ROUNDS, STEPS = 3, 5
 
 
+def k1_times(torch, chip_smoke, conv3d_in, g) -> None:
+    """K1 alone at each site of a forward (8 x 64^3 bf16, statistics where
+    the forward takes them), ms per call over 20 calls, and their sum."""
+    total = 0.0
+    for cis, co, stats in conv3d_in.k1_sites(chip_smoke.BASE):
+        parts = [torch.randn(chip_smoke.BATCH, *(chip_smoke.WIN,) * 3, c, device="cuda",
+                             generator=g).to(torch.bfloat16) for c in cis]
+        w = torch.randn(co, sum(cis), 3, 3, 3, device="cuda", generator=g) * 0.02
+        b = torch.randn(co, device="cuda", generator=g) * 0.1 if stats else None
+        ms = chip_smoke.cuda_ms(lambda: conv3d_in.conv3d(parts, w, b, with_stats=stats),
+                                reps=20)
+        total += ms
+        plan = conv3d_in.k1_plan(cis, co, (chip_smoke.BATCH,) + (chip_smoke.WIN,) * 3)
+        print(f"  K1 {cis}->{co} stats={stats}: {ms:.4f} ms ({plan.stages} stages)", flush=True)
+        del parts
+    print(f"  K1 forward, {len(conv3d_in.k1_sites(chip_smoke.BASE))} sites: {total:.3f} ms",
+          flush=True)
+    torch.cuda.empty_cache()
+
+
 def kernel_times(torch, chip_smoke) -> None:
-    """K4-K6 and K8 alone, ms per launch, through the checkout's wrappers."""
+    """K1 at a forward's sites, K4-K6 and K8 alone, ms per launch, through
+    the checkout's wrappers."""
     from mica_tpu_torch.models.mica import MultiScaleInput
     from mica_tpu_torch.ops import conv3d_in, stem
 
     g = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
+    k1_times(torch, chip_smoke, conv3d_in, g)
     for c in chip_smoke.K56_PER_STEP:
         shape = (chip_smoke.BATCH,) + (chip_smoke.WIN,) * 3 + (c,)
         xh = torch.randn(*shape, device="cuda", generator=g).to(bf)

@@ -19,8 +19,12 @@ Phases, each printing what it found; any failure ends the run non-zero:
      the bit), and time kernel, plain version and one library call (a
      yardstick the port never calls); K1 also prints each site's share of
      the bf16 peak and its ratio to cuDNN, and the sums over a forward and
-     over a training step's dx convs; K3 runs in the forward and in the dx
-     form, on odd shapes too, with its share of the bound and its tile plan;
+     over a training step's dx convs, and at each forward site must give
+     the same bits (out and statistics) over two calls and for sample 0
+     at batch 1, its second kernel (the statistics' fixed-order sum) held
+     to the bit against its plain version and timed alone; K3 runs in the
+     forward and in the dx form, on odd shapes too, with its share of the
+     bound and its tile plan;
      K7 (20 launches a site) on K3's odd shapes too, with its share of the
      bound (>= 50 % at each training site) and its tile plan, and two calls
      on the same inputs must agree to the bit; K4-K6 over 20 launches a
@@ -39,8 +43,9 @@ Phases, each printing what it found; any failure ends the run non-zero:
      MRC, with a docked model for the AF3 encoding, random weights from
      ``--seed``, bf16, batch 8, core 48 / halo 8, twice: the process's
      first call (one-off costs) and the measured one, with the launch
-     counts of that run alone; a profile of one batch forward; then a small window
-     batch against the f32 network on the CPU;
+     counts of that run alone, the two equal to the bit; a profile of one
+     batch forward; then a small window batch against the f32 network on
+     the CPU;
   5. the modelling path: a synthetic scenario (map, FASTA, AF3 template,
      docked model) written to disk and the ``Solver`` behind
      ``mica_tpu_torch.cli.run`` driven on it at the same width:
@@ -48,10 +53,11 @@ Phases, each printing what it found; any failure ends the run non-zero:
      candidate extraction on them (random weights: only what it returned
      is recorded), the launch counts of that run alone; then, from the
      scenario's perfect volumes put on the card, device extraction held
-     against the host's, fragments, AF3 alignment, the initial model, gap
-     filling, the all-atom rebuild (``--run_pulchra``: every residue with
-     N, CA, C, O and its type's side chain, finite coordinates; its host
-     seconds) and PHENIX's command (``--run_phenix``; PHENIX is not
+     against the host's (and whether two more give the same bits),
+     fragments, AF3 alignment, the initial model, gap filling, the
+     all-atom rebuild (``--run_pulchra``: every residue with N, CA, C, O
+     and its type's side chain, finite coordinates; its host seconds)
+     and PHENIX's command (``--run_phenix``; PHENIX is not
      installed), and the CA model held against the scenario's chain;
   6. the training path: ``Trainer`` at base 64, bf16, batch 8 of 64^3
      ``synthetic_batch`` windows, recomputation and augmentation on, the
@@ -96,8 +102,9 @@ Phases, each printing what it found; any failure ends the run non-zero:
      weights: the CA and all-atom models, coverage of the true chain at
      or above ``DEMO_COVERAGE_FLOOR``;
  11. the scripts: K11 and K12 in each of ``distill_ew_crash``'s ten
-     variants at its shapes (K11 to the bit, K12 within 1e-5 of the terms'
-     magnitudes) and K13 at the layout probe's, to the bit in both
+     variants at its shapes (K11 to the bit, K12 within 1e-5 of the
+     terms' magnitudes and to the bit from call to call, its second pass
+     timed alone) and K13 at the layout probe's, to the bit in both
      layouts, at an unaligned start and with a tail, each timed beside its
      plain version and one library call (K13 in turns with it);
      then the ``main`` of ``mica_tpu_torch.scripts.distill_ew_crash``,
@@ -105,19 +112,17 @@ Phases, each printing what it found; any failure ends the run non-zero:
      process, with the launch counts of those three runs alone;
  12. the multi-GPU phase (``multigpu_path``, about 75 s): NCCL at world
      size 1 in this process, ``predict_map`` with the mesh at base 64 on
-     the prediction phase's map, its forwards replaying a single-process
-     run's (``_recording_predictor``: the kernels launch, the inputs must
-     match to the bit), so its volumes must equal that run's to the bit
-     (K1's atomics make two plain bf16 runs differ; their distance and a
-     mesh run's without replay are printed), windows/s, K9/K10 once a
-     batch, and a data-parallel f32 ``Trainer`` step (cuDNN deterministic)
-     against two plain ones; two rank processes at world size 2 (gloo with
-     both ranks on ``cuda:0``: NCCL refuses two ranks on one card), the
-     replicated engine within ``MGPU_WORLD2_TOL`` of world 1 and equal on
-     both ranks, the ``shard_volumes`` engine replaying it (equal to the
-     bit) at <= 0.55x its bytes a rank, the f32 step against world 1 (loss,
-     gradient cosine, parameters equal on both ranks) and a bf16 step's
-     launches on each rank; then ``dryrun_multigpu(2)``.
+     the prediction phase's map, twice, each equal to the bit to a
+     single-process run (two of which are equal to the bit too),
+     windows/s, K9/K10 once a batch, and a data-parallel f32 ``Trainer``
+     step (cuDNN deterministic) against two plain ones; two rank processes
+     at world size 2 (gloo with both ranks on ``cuda:0``: NCCL refuses two
+     ranks on one card), the replicated engine within ``MGPU_WORLD2_TOL``
+     of world 1 (whether to the bit is printed) and equal on both ranks,
+     the ``shard_volumes`` engine and a second replicated run equal to the
+     bit to the first, at <= 0.55x its bytes a rank, the f32 step against
+     world 1 (loss, gradient cosine, parameters equal on both ranks) and a
+     bf16 step's launches on each rank; then ``dryrun_multigpu(2)``.
 
 The kernels' JSON record and the card's name come before the last line,
 ``{"ok": true, "device": {...}}``.  Details go to ``--out`` (default
@@ -251,7 +256,10 @@ def k1_plan_line(conv3d_in, cis, co) -> str:
 
 
 def check_k1(torch, F, conv3d_in, g, detail):
-    """K1 at every site, stats on and off, against the plain version in f32."""
+    """K1 at every site, stats on and off, against the plain version in f32;
+    at the forward's setting, a second call and sample 0 alone at batch 1
+    must give the same bits (out and statistics), and the second kernel
+    alone is held to the bit against its plain version and timed."""
     rows = []
     for cis, co, main_stats in conv3d_in.k1_sites(BASE):
         parts = [torch.randn(BATCH, WIN, WIN, WIN, c, device="cuda", generator=g)
@@ -283,6 +291,25 @@ def check_k1(torch, F, conv3d_in, g, detail):
             print(line, flush=True)
             if stats != main_stats:
                 continue
+            # a second call, and sample 0 alone, must give the same bits
+            out2, st2 = conv3d_in.conv3d(parts, w, bias, with_stats=stats)
+            out1, st1 = conv3d_in.conv3d([p[:1].contiguous() for p in parts], w, bias,
+                                         with_stats=stats)
+            fail_if(not torch.equal(out, out2) or (stats and not torch.equal(st, st2)),
+                    f"K1 {cis}->{co}: two calls on the same inputs differ")
+            fail_if(not torch.equal(out[:1], out1) or (stats and not torch.equal(st[:1], st1)),
+                    f"K1 {cis}->{co}: sample 0 at batch {BATCH} differs from it at batch 1")
+            del out2, st2, out1, st1
+            sum_ms = None
+            if stats:
+                plan = conv3d_in.k1_plan(cis, co, (BATCH, WIN, WIN, WIN))
+                part = torch.randn(plan.partials, device="cuda", generator=g)
+                fail_if(not torch.equal(conv3d_in.sum_partials(part),
+                                        conv3d_in.sum_partials_plain(part)),
+                        f"K1 {cis}->{co}: the second kernel's sums differ from its plain "
+                        "version's")
+                sum_ms = cuda_ms(lambda: conv3d_in.sum_partials(part), reps=20)
+                del part
             m = BATCH * WIN ** 3
             flops = 2.0 * m * 27 * ci * co
             nbytes = 2.0 * m * (ci + co) + 2.0 * w.numel() + (8.0 * BATCH * co if stats else 0)
@@ -297,17 +324,21 @@ def check_k1(torch, F, conv3d_in, g, detail):
                                            if bias is not None else None, padding=1))
             share = flops / (ms * 1e-3) / PEAK_BF16
             rows.append(dict(site=f"{cis}->{co}", max_abs_err=err, ms=ms, plain_ms=plain,
-                             library_ms=lib, bound_ms=bnd, bound_by=by,
+                             library_ms=lib, bound_ms=bnd, bound_by=by, sum_ms=sum_ms,
                              tflops=flops / ms / 1e9, peak_share=share, vs_library=ms / lib))
             print(f"  time {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {100 * share:.1f} % of "
-                  f"the bf16 peak), plain {plain:.3f} ms, library conv3d {lib:.3f} ms (K1 "
-                  f"{ms / lib:.3f}x), bound {bnd:.3f} ms ({by}); {k1_plan_line(conv3d_in, cis, co)}",
-                  flush=True)
+                  f"the bf16 peak; "
+                  + ("" if sum_ms is None else f"of it the second kernel alone {sum_ms:.4f} ms; ")
+                  + f"bitwise equal over two calls and at batch 1), plain {plain:.3f} ms, library "
+                  f"conv3d {lib:.3f} ms (K1 {ms / lib:.3f}x), bound {bnd:.3f} ms ({by}); "
+                  f"{k1_plan_line(conv3d_in, cis, co)}", flush=True)
         del parts, ref, ref_st
         torch.cuda.empty_cache()
     k1, lib = sum(r["ms"] for r in rows), sum(r["library_ms"] for r in rows)
-    print(f"K1 forward, {len(rows)} sites: {k1:.3f} ms, library conv3d {lib:.3f} ms (K1 "
-          f"{k1 / lib:.3f}x), bound {sum(r['bound_ms'] for r in rows):.3f} ms", flush=True)
+    sums = sum(r["sum_ms"] or 0.0 for r in rows)
+    print(f"K1 forward, {len(rows)} sites: {k1:.3f} ms (the second kernel {sums:.4f} ms of it), "
+          f"library conv3d {lib:.3f} ms (K1 {k1 / lib:.3f}x), bound "
+          f"{sum(r['bound_ms'] for r in rows):.3f} ms", flush=True)
     detail["conv3d_stats"] = rows
     return rows
 
@@ -1140,12 +1171,16 @@ def main_path(torch, args, detail):
         cold = predict_map(str(map_path), model, docked_pdb_path=str(pdb_path), **kw)
         cold_wall = time.time() - t0
         cold_wps = (cold["timing"]["n_windows"] - cold["timing"]["n_empty"]) / cold["timing"]["inference"]
-        del cold
+        cold = _probs(cold)
         _reset_counts()
         t0 = time.time()
         out = predict_map(str(map_path), model, docked_pdb_path=str(pdb_path), **kw)
         wall = time.time() - t0
         launches = _read_counts()
+    # bf16 runs repeat to the bit (K1's statistics are summed in a fixed order)
+    repeat = _vol_dist(_probs(out), cold)
+    fail_if(repeat != 0.0, f"two predict_map runs on one map differ by {repeat:.3e}")
+    del cold
     timing = out["timing"]
     n = args.map_size
     for key in ("backbone_probability", "carbon_alpha_probability"):
@@ -1168,7 +1203,8 @@ def main_path(torch, args, detail):
     print(f"timing {json.dumps(timing)}", flush=True)
     print(f"launches {json.dumps(launches)} (K1/K2/K3/K8 13/12/3/1 per forward, K9/K10 1 per "
           "computed batch)", flush=True)
-    print(f"volumes finite, bb/ca in [0, 1], aa sums to 1 within {aa_sum_err:.2e}", flush=True)
+    print(f"volumes finite, bb/ca in [0, 1], aa sums to 1 within {aa_sum_err:.2e}; equal to "
+          "the bit to the first call's", flush=True)
     detail["main_path"] = dict(timing=timing, launches=launches, windows_per_s=wps,
                                wall_s=wall, map_size=n, first_call_windows_per_s=cold_wps,
                                first_call_wall_s=cold_wall)
@@ -1302,6 +1338,11 @@ def modelling_path(torch, args, model, detail):
         d_xyz = float(np.abs(sol.cands.coords - host.coords).max())
         d_aa = float(np.abs(sol.cands.aa_prob - host.aa_prob).max())
         fail_if(d_xyz > 1e-12 or d_aa > 1e-12, f"device candidates off by {d_xyz}, {d_aa}")
+        # two more extractions on the same volumes (the per-cluster sums are
+        # index_add_ on the card): whether they return the same bits
+        twice = [extract_candidates_device(*(sol.volumes[k] for k in keys)) for _ in range(2)]
+        extract_repeat = all(np.array_equal(twice[0][k], twice[1][k]) for k in twice[0])
+        del twice
         placed = pdb_io.select(pdb_io.parse_pdb(sol.ca_model_path), name="CA")
         fail_if(not len(placed) > 0.6 * len(ca), f"{len(placed)} of {len(ca)} residues placed")
         dist = np.linalg.norm(pdb_io.coords(placed)[:, None, :] - ca[None, :, :],
@@ -1312,7 +1353,8 @@ def modelling_path(torch, args, model, detail):
     print(f"  perfect volumes on the card: {len(sol.cands)} candidates, equal to the host "
           f"extraction in order and prediction, coords within {d_xyz:.1e}, aa within "
           f"{d_aa:.1e} (tol 1e-12); device {sol.time_cost['clustering']:.3f} s "
-          f"({json.dumps(sol.extraction_stats)}), host {host_s:.3f} s", flush=True)
+          f"({json.dumps(sol.extraction_stats)}), host {host_s:.3f} s; two more device "
+          f"extractions equal to the bit: {extract_repeat}", flush=True)
     print(f"  stages (s): {json.dumps(sol.time_cost)}", flush=True)
     print(f"  CA model: {len(placed)} of {len(ca)} residues placed (> 60 %), median distance "
           f"to the chain {median:.3f} A (< 1.5)", flush=True)
@@ -1324,7 +1366,8 @@ def modelling_path(torch, args, model, detail):
     print(f"  PHENIX (--run_phenix, not installed: the command only): {sol.phenix_command}",
           flush=True)
     detail["modelling"] = dict(time_cost=dict(sol.time_cost), extraction_stats=sol.extraction_stats,
-                               host_extraction_s=host_s, placed=int(len(placed)),
+                               host_extraction_s=host_s, extraction_repeats=extract_repeat,
+                               placed=int(len(placed)),
                                residues=int(len(ca)), median_distance=median,
                                all_atom=all_atom, host=platform.node(),
                                phenix_command=sol.phenix_command)
@@ -2393,7 +2436,8 @@ def check_scripts_kernels(torch, g, detail):
     """K11 and K12 in each variant of ``distill_ew_crash`` at its shapes, x
     and dy (64, 64, 512, 128) bf16: K11 bitwise against its plain version,
     K12 within 1e-5 of the sums of the terms' magnitudes (f32 sums in
-    another order, with atomics); K13 bitwise at the layout probe's (8,
+    another order) and bitwise from call to call, its second pass timed
+    alone; K13 bitwise at the layout probe's (8,
     64^3, 256) and its transpose.  Each timed beside its plain version and
     one library call: the eager bf16 expression with in-place ops, a
     ``torch.sum`` of g and g^2 (K12), ``torch.mul(out=)`` (K13)."""
@@ -2418,7 +2462,14 @@ def check_scripts_kernels(torch, g, detail):
             scratch[write] = args[write].clone()
         if body == "k5":
             got = de.run_variant(v, inputs, "cuda")
+            fail_if(not torch.equal(got, de.run_variant(v, inputs, "cuda")),
+                    f"K12 {v}: two calls on the same inputs differ")
             torch.cuda.synchronize()
+            plan = ew_rows.k12_plan(shape, de.B_SZ)
+            blocks = torch.randn((1 + plan["partials"], de.B_SZ, 2, de.C), device="cuda",
+                                 generator=g)
+            sum_ms = cuda_ms(lambda: ew_rows.sum_partial_blocks(blocks), reps=20)
+            del blocks
             want = ew_rows.masked_sq_stats_plain(x, dy)
             mag = ew_rows.masked_sq_stats_plain(x, dy.abs())
             err = (got - want).abs().max().item()
@@ -2433,7 +2484,9 @@ def check_scripts_kernels(torch, g, detail):
                 return torch.stack([gg.view(grp).sum(dim=(0, 1)),
                                     gg.square().view(grp).sum(dim=(0, 1))], dim=1)
 
-            lib_name, rows, tol = "torch.sum of g and g^2", rows12, "1e-5 of the magnitudes"
+            lib_name, rows = "torch.sum of g and g^2", rows12
+            tol = (f"1e-5 of the magnitudes; bitwise equal over two calls; of the time the "
+                   f"second pass over {plan['partials']} partials alone {sum_ms:.4f} ms")
         else:
             got = de.run_variant(v, inputs, "cuda")
             got = got if isinstance(got, tuple) else (got,)
@@ -2456,6 +2509,7 @@ def check_scripts_kernels(torch, g, detail):
         ms = cuda_ms(lambda: fn(*scratch), reps=5)
         lib_ms = cuda_ms(lib)
         rows.append(dict(site=v, body=body, h_block=h_block, max_abs_err=err, ms=ms,
+                         sum_ms=sum_ms if body == "k5" else None,
                          plain_ms=plain, library_ms=lib_ms, bound_ms=bnd, bound_by=by))
         print(f"{'K12' if body == 'k5' else 'K11'} {v} ({body}{', h_block 8' if h_block else ''}"
               f"{', in place' if write is not None else ''}): max_abs_err {err:.3e} ({tol}); "
@@ -2541,7 +2595,9 @@ def scripts_path(torch, detail):
 # Gates of the multi-GPU phase, set before its first card run.  World 2
 # (gloo, both ranks on one card, 4 windows a rank a batch) against world 1
 # (8 windows a batch): the probabilities; the batch composition differs,
-# and K1's statistics are summed with atomics, so not to the bit.
+# and not every library op gives a sample the same bits at every batch
+# size, so not to the bit.  Runs of one batch composition are equal to the
+# bit.
 MGPU_WORLD2_TOL = 0.05
 # the sharded volumes' bytes a rank over the replicated ones'
 MGPU_SHARD_BYTES_MAX = 0.55
@@ -2561,40 +2617,6 @@ def _probs(out) -> tuple:
 
 def _vol_dist(a, b) -> float:
     return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
-
-
-def _recording_predictor(torch, calls: list, model, **kw):
-    """A ``SlidingWindowPredictor`` whose forwards run as usual (every
-    kernel launches); while its ``recording`` is on they are recorded in
-    ``calls`` (inputs and outputs), and while its ``replaying`` is on they
-    must see the recorded inputs to the bit and return the recorded
-    outputs.  K1's statistics are summed with atomics, so two bf16 runs of
-    the engine differ in a window or two (``probe_repeat.py``); a replayed
-    run differs from the recorded one only in what the engine does around
-    the forward (the row split, the exchange, the paste, the slabs), so the
-    two must be equal to the bit."""
-    from mica_tpu_torch.infer.engine import SlidingWindowPredictor
-
-    class Predictor(SlidingWindowPredictor):
-        recording = replaying = False
-        replayed = 0
-
-        def _forward(self, windows, af, full):
-            outs = super()._forward(windows, af, full)
-            if self.recording:
-                calls.append((windows.clone(), None if af is None else af.clone(),
-                              tuple(o.clone() for o in outs)))
-            if not self.replaying:
-                return outs
-            fail_if(self.replayed >= len(calls), "more forwards than the recorded run's")
-            w0, a0, recorded = calls[self.replayed]
-            self.replayed += 1
-            fail_if(not torch.equal(w0, windows) or (a0 is None) != (af is None)
-                    or (a0 is not None and not torch.equal(a0, af)),
-                    f"forward {self.replayed}: inputs differ from the recorded run's")
-            return recorded
-
-    return Predictor(model, **kw)
 
 
 def _dp_step(torch, sd, seed, **mesh_kw):
@@ -2626,11 +2648,12 @@ def _dp_step(torch, sd, seed, **mesh_kw):
 
 def _mgpu_rank(map_path: str, pdb_path: str, seed: int, workdir: str) -> dict:
     """One rank of the phase's world of 2 (``parallel.dryrun.spawn``): the
-    replicated engine through ``predict_map`` (recorded), the sharded one
-    replaying it, the replicated one again as is; the f32 data-parallel
-    step, then a bf16 one with its launches."""
+    replicated engine through ``predict_map``, the sharded one, the
+    replicated one again; the f32 data-parallel step, then a bf16 one with
+    its launches."""
     import torch
 
+    from mica_tpu_torch.infer.engine import SlidingWindowPredictor
     from mica_tpu_torch.infer.pipeline import build_af3_encoding, predict_map
     from mica_tpu_torch.models.mica import MICA, dropout_rate_for_epoch
     from mica_tpu_torch.parallel import distributed
@@ -2643,9 +2666,7 @@ def _mgpu_rank(map_path: str, pdb_path: str, seed: int, workdir: str) -> dict:
     model = MICA(base=BASE).init_weights(torch.Generator().manual_seed(seed))
     kw = dict(batch_size=BATCH, dtype=torch.bfloat16, base_filters=BASE, core=48, halo=8,
               mesh=mesh)
-    calls = []
-    rep = _recording_predictor(torch, calls, model, **kw)
-    rep.recording = True
+    rep = SlidingWindowPredictor(model, **kw)
     _reset_counts()
     first = predict_map(map_path, model, docked_pdb_path=pdb_path, predictor=rep)
     launches = _read_counts()
@@ -2657,12 +2678,8 @@ def _mgpu_rank(map_path: str, pdb_path: str, seed: int, workdir: str) -> dict:
     world1 = np.load(wd / "world1.npz")
     world1_err = _vol_dist(rep_vols, tuple(world1[k] for k in ("bb", "ca", "aa")))
     digest = hashlib.sha256(b"".join(v.tobytes() for v in rep_vols)).hexdigest()
-    rep.recording = False
-    sv = _recording_predictor(torch, calls, model, shard_volumes=True, **kw)
-    sv.replaying = True
+    sv = SlidingWindowPredictor(model, shard_volumes=True, **kw)
     shard_err = _vol_dist(_probs(sv.predict_volume(prepared.volume, enc)), rep_vols)
-    fail_if(sv.replayed != len(calls), f"{sv.replayed} of {len(calls)} forwards replayed")
-    del calls
     rep_spread = _vol_dist(_probs(rep.predict_volume(prepared.volume, enc)), rep_vols)
     del rep_vols
     loss, grads, params = _dp_step(torch, torch.load(wd / "dp_init.pt"), seed, mesh=mesh)
@@ -2687,6 +2704,7 @@ def multigpu_path(torch, args, detail, smi: str) -> float:
     process (engine and ``Trainer`` against the plain ones), gloo at world
     size 2 with both ranks on ``cuda:0`` (NCCL refuses two ranks on one
     card), then ``dryrun_multigpu(2)``.  Returns the phase's seconds."""
+    from mica_tpu_torch.infer.engine import SlidingWindowPredictor
     from mica_tpu_torch.infer.pipeline import build_af3_encoding, predict_map
     from mica_tpu_torch.models.mica import MICA
     from mica_tpu_torch.parallel import distributed, dryrun
@@ -2700,21 +2718,20 @@ def multigpu_path(torch, args, detail, smi: str) -> float:
         map_path, pdb_path = synthetic_inputs(wd, args.map_size, args.seed)
         model = MICA(base=BASE).init_weights(torch.Generator().manual_seed(args.seed))
 
-        # one process, no group: a recorded run, then the same predictor again
-        calls = []
-        plain = _recording_predictor(torch, calls, model, **kw)
-        plain.recording = True
+        # one process, no group: two runs of one predictor
+        plain = SlidingWindowPredictor(model, **kw)
         first = predict_map(str(map_path), model, docked_pdb_path=str(pdb_path),
                             predictor=plain)
         prepared = first["prepared_map"]
         enc = build_af3_encoding(prepared, str(pdb_path))
         ref = _probs(first)
         del first
-        plain.recording = False
         again = _probs(plain.predict_volume(prepared.volume, enc))
         res["single_spread"] = _vol_dist(again, ref)
         res["single_windows_per_s"] = ((plain.timing["n_windows"] - plain.timing["n_empty"])
                                        / plain.timing["inference"])
+        fail_if(res["single_spread"] != 0.0, f"two single-process runs differ by "
+                                             f"{res['single_spread']:.3e}")
         np.savez(wd / "world1.npz", bb=ref[0], ca=ref[1], aa=ref[2])
         init = Trainer(base_filters=DP_BASE, dtype=torch.float32, seed=args.seed,
                        use_mesh=False)
@@ -2730,28 +2747,25 @@ def multigpu_path(torch, args, detail, smi: str) -> float:
             mesh = distributed.global_mesh()
             fail_if(str(mesh.device) != "cuda:0" or not mesh.distributed,
                     f"the NCCL world's device is {mesh.device}")
-            nccl = _recording_predictor(torch, calls, model, mesh=mesh, **kw)
-            nccl.replaying = True
+            nccl = SlidingWindowPredictor(model, mesh=mesh, **kw)
             _reset_counts()
             out = predict_map(str(map_path), model, docked_pdb_path=str(pdb_path),
                               predictor=nccl)
             torch.cuda.synchronize()
             launches = _read_counts()
             computed = check_predict_launches(launches, out["timing"])
-            fail_if(nccl.replayed != len(calls), f"{nccl.replayed} of {len(calls)} "
-                                                 "forwards replayed")
             res["nccl_err"] = _vol_dist(_probs(out), ref)
             res["nccl_launches"] = launches
-            del out, calls
-            nccl.replaying = False
-            res["nccl_raw_err"] = _vol_dist(_probs(nccl.predict_volume(prepared.volume, enc)),
-                                            ref)
+            del out
+            res["nccl_again_err"] = _vol_dist(_probs(nccl.predict_volume(prepared.volume, enc)),
+                                              ref)
             res["nccl_windows_per_s"] = computed / nccl.timing["inference"]
             loss_m, _, params_m = _dp_step(torch, sd, args.seed, mesh=mesh)
         finally:
             torch.distributed.destroy_process_group()
-        fail_if(res["nccl_err"] != 0.0, f"NCCL world 1 volumes {res['nccl_err']:.3e} from "
-                                        "the recorded single-process run's")
+        for key in ("nccl_err", "nccl_again_err"):
+            fail_if(res[key] != 0.0, f"NCCL world 1 volumes {res[key]:.3e} from the "
+                                     "single-process run's")
         res["plain_step_loss_spread"] = abs(dp_plain[1][0] - dp_plain[0][0])
         res["plain_step_params_spread"] = float(np.abs(dp_plain[1][2] - dp_plain[0][2]).max())
         res["nccl_step_loss_err"] = abs(loss_m - dp_plain[0][0])
@@ -2761,10 +2775,9 @@ def multigpu_path(torch, args, detail, smi: str) -> float:
             fail_if(err > spread, f"NCCL world 1 step: {what} {err:.3e} from the plain "
                                   f"step's, over two plain steps' spread {spread:.3e}")
         print(f"multi-GPU, NCCL world 1 (in this process): {res['nccl_windows_per_s']:.3f} "
-              f"windows/s against {res['single_windows_per_s']:.3f} in one process; volumes "
-              f"equal to the bit to a single-process run whose forwards it replays, "
-              f"{res['nccl_raw_err']:.3e} from it without (two single-process runs: "
-              f"{res['single_spread']:.3e}); launches {json.dumps(launches)}; the f32 step "
+              f"windows/s against {res['single_windows_per_s']:.3f} in one process; volumes of "
+              f"two runs equal to the bit to a single-process run's (two single-process runs "
+              f"equal to the bit too); launches {json.dumps(launches)}; the f32 step "
               f"(cuDNN deterministic) {res['nccl_step_loss_err']:.3e} in loss and "
               f"{res['nccl_step_params_err']:.3e} in parameters from the plain step's (two "
               f"plain steps: {res['plain_step_loss_spread']:.3e}, "
@@ -2785,8 +2798,9 @@ def multigpu_path(torch, args, detail, smi: str) -> float:
         fail_if(r["world1_err"] > MGPU_WORLD2_TOL,
                 f"rank {r['rank']}: world 2 volumes {r['world1_err']:.3e} from world 1's")
         fail_if(r["shard_err"] != 0.0,
-                f"rank {r['rank']}: shard_volumes {r['shard_err']:.3e} from the replicated "
-                f"run whose forwards it replays")
+                f"rank {r['rank']}: shard_volumes {r['shard_err']:.3e} from the replicated run")
+        fail_if(r["rep_spread"] != 0.0,
+                f"rank {r['rank']}: two replicated runs differ by {r['rep_spread']:.3e}")
         fail_if(r["acc_bytes_shard"] > MGPU_SHARD_BYTES_MAX * r["acc_bytes_rep"],
                 f"rank {r['rank']}: sharded volumes {r['acc_bytes_shard']} bytes against "
                 f"{r['acc_bytes_rep']} replicated")
@@ -2814,12 +2828,13 @@ def multigpu_path(torch, args, detail, smi: str) -> float:
     res["world2"] = ranks
     t = ranks[0]["timing"]
     res["world2_windows_per_s"] = (t["n_windows"] - t["n_empty"]) / t["inference"]
+    res["world2_equals_world1"] = all(r["world1_err"] == 0.0 for r in ranks)
     print(f"multi-GPU, world 2 ({ranks[0]['backend']}, ranks on {ranks[0]['device']} and "
           f"{ranks[1]['device']}; {res['world2_s']:.1f} s): volumes within "
-          f"{max(r['world1_err'] for r in ranks):.3e} of world 1's (gate {MGPU_WORLD2_TOL}), "
-          f"equal on both ranks; shard_volumes equal to the bit to the replicated run whose "
-          f"forwards it replays (two replicated runs: "
-          f"{max(r['rep_spread'] for r in ranks):.3e}); bytes a rank "
+          f"{max(r['world1_err'] for r in ranks):.3e} of world 1's (gate {MGPU_WORLD2_TOL}; "
+          f"equal to the bit: {res['world2_equals_world1']}; a rank forwards 4 windows a "
+          f"batch, world 1 8), equal on both ranks; shard_volumes and a second replicated "
+          f"run equal to the bit to the replicated run; bytes a rank "
           f"{ranks[0]['acc_bytes_shard']} sharded / {ranks[0]['acc_bytes_rep']} replicated "
           f"({ranks[0]['acc_bytes_shard'] / ranks[0]['acc_bytes_rep']:.3f}x); "
           f"{res['world2_windows_per_s']:.3f} windows/s replicated; K9/K10 "

@@ -48,11 +48,20 @@
 //     stores nothing.
 //   * Epilogue: bias in f32; the statistics of the f32 values, summed over
 //     a thread's rows, then a reduce-scatter over the 8 lanes that share a
-//     column (in chunks of two n8 blocks: wider chunks spilled), a per-CTA
-//     shared-memory sum over the tiles of one sample, and one atomicAdd per
-//     (CTA, sample, channel) (their order varies between runs); bf16 cast
-//     and 16-byte stores after a 4x4 transpose within each quad.  Rows of a
+//     column (in chunks of two n8 blocks: wider chunks spilled), so each
+//     lane holds distinct (column, stat) sums; each consumer warp writes
+//     them to its own shared-memory slot, and after a named barrier the
+//     consumer threads add the 8 slots in warp order and write the tile's
+//     partial row pair to a (B, bricks, 2, Co) f32 buffer, one slot per
+//     (brick, N tile), each written by exactly one CTA; bf16 cast and
+//     16-byte stores after a 4x4 transpose within each quad.  Rows of a
 //     brick outside the volume are neither stored nor counted.
+//   * A second kernel (`stats_sum_kernel`) sums each sample's bricks in a
+//     fixed order into (B, 2, Co): 32 groups, group g taking bricks g,
+//     g + 32, ... in turn, then the groups in order.  No atomics: two calls
+//     give the same bits, and the order depends only on the sample's
+//     geometry, so a sample's statistics do not depend on the batch it is
+//     in or on its place there.
 // The tile plan (BK, BN, MT, brick, stages, CTAs) is computed in Python
 // (`mica_tpu_torch/ops/conv3d_in.py`, `k1_plan`) and checked here.  Tensor
 // maps are encoded on the host with cuTensorMapEncodeTiled, reached through
@@ -86,7 +95,7 @@ struct Params {
   int stage_bytes, a_bytes;
   const float* bias;  // (Co,) or null
   __nv_bfloat16* out; // (B, D, H, W, Co)
-  float* stats;       // (B, 2, Co) or null
+  float* part;        // (B, bricks a sample, 2, Co): a brick's partial row pair, or null
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -334,6 +343,7 @@ __device__ __forceinline__ uint32_t pick(uint32_t v0, uint32_t v1, uint32_t v2, 
 
 struct Tile {
   int b, x0, y0, z0, n0;
+  int brick;  // index over the batch's bricks: its slot in the partials
   bool valid;  // false for the partner of an odd last brick: it loads, but stores nothing
 };
 
@@ -344,6 +354,7 @@ __device__ __forceinline__ Tile decode(const Params& p, int pair, int rank, int 
   const int nt = pair % p.n_tiles;
   int brick = (pair / p.n_tiles) * 2 + rank;
   r.valid = brick < p.bricks;
+  r.brick = brick;
   const int bx = brick % p.nbx;
   brick /= p.nbx;
   const int by = brick % p.nby;
@@ -368,7 +379,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t bars = base + p.stages * p.stage_bytes;  // full[s], then empty[s]
-  float* s_stats =
+  // the consumer warps' statistics slots, (8 warps, BN columns, 2) f32
+  float* s_slots =
       reinterpret_cast<float*>(smem_raw + (base - raw) + p.stages * p.stage_bytes + 16 * p.stages);
   const int tid = threadIdx.x;
   const uint32_t rank = cluster_rank();
@@ -383,8 +395,6 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (p.stats)
-    for (int i = tid; i < 2 * p.Co; i += THREADS) s_stats[i] = 0.f;
   cluster_sync();
 
   const int wg = tid / 128;
@@ -432,26 +442,12 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
     const int kk_n = p.bk / 16;
     const int bw = 1 << p.lw, bh = 1 << p.lh;
     float acc[MT][R];
-    int s = 0, cur_b = -1;
+    int s = 0;
     uint32_t ph = 0;
-
-    auto flush = [&](int b) {
-      asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
-      float* g = p.stats + (long long)b * 2 * p.Co;
-      for (int i = tid; i < 2 * p.Co; i += CONSUMERS * 128) {
-        const float v = s_stats[i];
-        if (v != 0.f) atomicAdd(g + i, v);
-        s_stats[i] = 0.f;
-      }
-      asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
-    };
+    float* slot = s_slots + (wg * 4 + warp) * 2 * BN;  // this warp's, [column][stat]
 
     for (int pair = cluster; pair < p.pairs; pair += n_clusters) {
       const Tile tl = decode(p, pair, rank, BN);
-      if (p.stats && tl.valid && tl.b != cur_b) {
-        if (cur_b >= 0) flush(cur_b);
-        cur_b = tl.b;
-      }
       int prev = -1;
       for (int k = 0; k < p.ksteps; ++k) {
         mbar_wait(bars + 8 * s, ph);
@@ -521,12 +517,15 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
           }
         }
       }
-      if (p.stats) {
+      if (p.part) {
+        // the slots are free once every consumer thread has read the last
+        // tile's
+        asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
         // per chunk of CJ n8 column blocks: this thread's sums over its rows
         // inside the volume, v[4 jj + e] (e: y of column 2q, y of 2q + 1,
         // y^2 of each), then a reduce-scatter over the 8 lanes that share q
-        // (3 levels of halving), so each lane adds CJ / 2 totals to shared
-        // memory
+        // (3 levels of halving), so each lane writes CJ / 2 distinct totals
+        // to its warp's slot
         constexpr int CJ = 2;  // wider chunks hold more registers and spill (measured)
         constexpr int V = 4 * CJ;
 #pragma unroll
@@ -569,8 +568,9 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
 #pragma unroll
           for (int i = 0; i < V / 8; ++i) {
             const int idx = first + i, e = idx & 3;
-            const int col = tl.n0 + 8 * (j0 + (idx >> 2)) + 2 * q + (e & 1);
-            atomicAdd(s_stats + (e >> 1) * p.Co + col, v[i]);
+            const int col = 8 * (j0 + (idx >> 2)) + 2 * q + (e & 1);
+            // [column][stat]: a warp's 32 writes fall in 32 banks
+            slot[2 * col + (e >> 1)] = v[i];
           }
         }
       }
@@ -606,10 +606,48 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
               *reinterpret_cast<uint4*>(row + (4 * g + q) * 8) = make_uint4(w[0], w[1], w[2], w[3]);
           }
         }
+      if (p.part) {
+        // the tile's partial row pair: the 8 warps' slots added in warp order
+        asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+        float* g = p.part + (long long)tl.brick * 2 * p.Co + tl.n0;
+        for (int i = tid; i < 2 * BN; i += CONSUMERS * 128) {
+          float t = s_slots[i];
+#pragma unroll
+          for (int wi = 1; wi < CONSUMERS * 4; ++wi) t += s_slots[wi * 2 * BN + i];
+          g[(i & 1) * p.Co + (i >> 1)] = t;
+        }
+      }
     }
-    if (p.stats && cur_b >= 0) flush(cur_b);
     cluster_sync();
   }
+}
+
+constexpr int SUM_GROUPS = 32;  // `K1_SUM_GROUPS` in conv3d_in.py
+
+// stats[b][i] = the sum over sample b's `nb` bricks of part[b][brick][i]
+// (i over the 2 * Co values of a row pair), in a fixed order: thread row g
+// adds bricks g, g + 32, ... in turn, then row 0 adds the 32 rows in order.
+// One block per (32 values, sample).
+__global__ void __launch_bounds__(32 * SUM_GROUPS)
+    stats_sum_kernel(const float* __restrict__ part, float* __restrict__ stats, int nb, int co2) {
+  __shared__ float rows[SUM_GROUPS][33];
+  const int i = blockIdx.x * 32 + threadIdx.x, g = threadIdx.y;
+  const float* src = part + (long long)blockIdx.y * nb * co2 + i;
+  float t = 0.f;
+  for (int k = g; k < nb; k += SUM_GROUPS) t += src[(long long)k * co2];
+  rows[g][threadIdx.x] = t;
+  __syncthreads();
+  if (g == 0) {
+    t = rows[0][threadIdx.x];
+    for (int j = 1; j < SUM_GROUPS; ++j) t += rows[j][threadIdx.x];
+    stats[(long long)blockIdx.y * co2 + i] = t;
+  }
+}
+
+int launch_sum(const float* part, float* stats, int B, int nb, int Co, cudaStream_t stream) {
+  stats_sum_kernel<<<dim3(2 * Co / 32, B), dim3(32, SUM_GROUPS), 0, stream>>>(part, stats, nb,
+                                                                             2 * Co);
+  return (int)cudaGetLastError();
 }
 
 // (BN, MT) pairs that are compiled; `k1_plan` in conv3d_in.py keeps the same list
@@ -670,22 +708,25 @@ int log2i(int v) {
 
 // Channels-last bf16 parts x0..x2 (B,D,H,W,c_k), c_k = 0 for an absent
 // part; w (Co, 27*sum c_k) bf16; bias (Co,) f32 or null; out (B,D,H,W,Co)
-// bf16; stats (B,2,Co) f32, zeroed by the caller, or null; every pointer
-// 16-byte aligned.  The tile plan: K step bk, N tile bn (Co = n_tiles*bn),
-// mt m64 slices per consumer warpgroup, brick bw x bh x bd = 128*mt voxels,
-// ring stages, ctas persistent blocks (even: clusters of two; fewer if
-// fewer clusters fit on the card at once).  Returns 0 on success, a CUDA error
-// code, -1 if cuTensorMapEncodeTiled cannot be had, or -2 if a
-// tensor map is refused.
+// bf16; stats (B,2,Co) f32 or null, and with it part, an f32 buffer of
+// (B, bricks a sample, 2, Co) for the bricks' partial sums (neither needs
+// zeroing); every pointer 16-byte aligned.  The tile plan: K step bk, N
+// tile bn (Co = n_tiles*bn), mt m64 slices per consumer warpgroup, brick
+// bw x bh x bd = 128*mt voxels, ring stages, ctas persistent blocks (even:
+// clusters of two; fewer if fewer clusters fit on the card at once).
+// Launches the conv kernel, then, with stats, the kernel that sums the
+// partials.  Returns 0 on success, a CUDA error code, -1 if
+// cuTensorMapEncodeTiled cannot be had, or -2 if a tensor map is refused.
 extern "C" int conv3d_stats_bf16(const void* x0, const void* x1, const void* x2, int c0, int c1,
                                  int c2, const void* w, const void* bias, void* out, void* stats,
-                                 int B, int D, int H, int W, int Co, int bk, int bn, int mt,
+                                 void* part, int B, int D, int H, int W, int Co, int bk, int bn, int mt,
                                  int bw, int bh, int bd, int stages, int ctas, void* stream) {
   const void* xs[3] = {x0, x1, x2};
   const int cs[3] = {c0, c1, c2};
   const int ci_tot = c0 + c1 + c2;
   if ((bk != 32 && bk != 64) || c0 <= 0 || c0 % bk || c1 % bk || c2 % bk || bn <= 0 ||
-      Co % bn || B <= 0 || D <= 0 || H <= 0 || W <= 0 || ctas <= 0 || ctas % 2)
+      Co % bn || B <= 0 || D <= 0 || H <= 0 || W <= 0 || ctas <= 0 || ctas % 2 ||
+      (stats != nullptr) != (part != nullptr))
     return (int)cudaErrorInvalidValue;
   if (!is_pow2(bw) || !is_pow2(bh) || !is_pow2(bd) || bw > 256 || bh > 256 || bd > 256 ||
       bw * bh * bd != 128 * mt)
@@ -721,11 +762,11 @@ extern "C" int conv3d_stats_bf16(const void* x0, const void* x1, const void* x2,
   p.stages = stages;
   p.a_bytes = 128 * mt * bk * 2;
   p.stage_bytes = (p.a_bytes + bn * bk * 2 + 1023) / 1024 * 1024;
-  const int smem = 1024 + stages * p.stage_bytes + 16 * stages + 8 * Co;
+  const int smem = 1024 + stages * p.stage_bytes + 16 * stages + 64 * bn;
   if (stages < 2 || smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<__nv_bfloat16*>(out);
-  p.stats = static_cast<float*>(stats);
+  p.part = static_cast<float*>(part);
 
   EncodeTiled encode = encoder();
   if (!encode) return -1;
@@ -757,9 +798,20 @@ extern "C" int conv3d_stats_bf16(const void* x0, const void* x1, const void* x2,
       return -2;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = (int)cudaErrorInvalidValue;
 #define K1_DISPATCH(N, M) \
-  if (bn == N && mt == M) return launch<N, M>(maps, p, ctas, smem, s);
+  if (bn == N && mt == M) err = launch<N, M>(maps, p, ctas, smem, s);
   K1_CONFIGS(K1_DISPATCH)
 #undef K1_DISPATCH
-  return (int)cudaErrorInvalidValue;
+  if (err || !stats) return err;
+  return launch_sum(p.part, static_cast<float*>(stats), B, p.bricks / B, Co, s);
+}
+
+// The second kernel alone, on the partials of a launch of the first:
+// (B, nb, 2, Co) -> stats (B, 2, Co).  Returns 0 or a CUDA error code.
+extern "C" int conv3d_stats_sum(const void* part, void* stats, int B, int nb, int Co,
+                                void* stream) {
+  if (B <= 0 || nb <= 0 || Co <= 0 || Co % 32) return (int)cudaErrorInvalidValue;
+  return launch_sum(static_cast<const float*>(part), static_cast<float*>(stats), B, nb, Co,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -7,7 +7,10 @@ its plain PyTorch version:
     bias over the channel concat of 1-3 operands, with the per-(batch,
     channel) sums of y and y^2 of the f32 value before the cast.  Replaces
     ``_wino_T``; bounded by the tensor cores (see the source's note).  Its
-    tile plan (``k1_plan``) is computed here and handed to the kernel.
+    tile plan (``k1_plan``) is computed here and handed to the kernel.  The
+    sums are a partial row pair per (brick, N tile), then a second kernel
+    adds a sample's bricks in a fixed order: no atomics, so two calls give
+    the same bits and a sample's bits do not depend on its batch.
   * K2 ``in_apply`` (Triton): y = relu((y - mean) * scale) in place, with
     mean and scale cast to the tensor's dtype first.  Replaces
     ``_in_apply_T``.  One read and one write per element and a tiny
@@ -89,7 +92,8 @@ def conv3d_plain(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] = Non
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_CONV_ARGS = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_I] * 8 + [_P]
+_CONV_ARGS = [_P] * 3 + [_I] * 3 + [_P] * 5 + [_I] * 5 + [_I] * 8 + [_P]
+_SUM_ARGS = [_P, _P, _I, _I, _I, _P]
 
 # (BN, MT) pairs compiled into ``csrc/conv3d_stats.cu`` (``K1_CONFIGS``
 # there): N tile and m64 slices per consumer warpgroup.  MT 2 (a 256-voxel
@@ -98,6 +102,10 @@ _CONV_ARGS = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_I]
 K1_CONFIGS = ((256, 1), (192, 1), (128, 2), (96, 2), (64, 2), (32, 2))
 K1_MT = dict(K1_CONFIGS)
 MAX_STAGES = 8
+# thread rows of K1's second kernel (``SUM_GROUPS`` in the source): row g
+# adds a sample's bricks g, g + K1_SUM_GROUPS, ..., then the rows are added
+# in order
+K1_SUM_GROUPS = 32
 
 
 def _pow2_at_least(v: int) -> int:
@@ -114,7 +122,9 @@ class K1Plan:
     voxels ``brick = (bw, bh, bd)``; ``bricks`` per axis (x, y, z) of one
     sample; ``stages`` of the TMA ring; ``ctas`` persistent blocks, in
     clusters of two that share each weight tile (each loads half and
-    multicasts it): a cluster's tile is two adjacent bricks."""
+    multicasts it): a cluster's tile is two adjacent bricks.  With
+    statistics, each tile writes its partial row pair to slot (b, brick of
+    the sample) of a ``partials`` buffer, which the second kernel sums."""
 
     cis: Tuple[int, ...]
     co: int
@@ -133,9 +143,19 @@ class K1Plan:
         return 128 * self.mt
 
     @property
-    def n_bricks(self) -> int:
+    def bricks_per_sample(self) -> int:
         nbx, nby, nbz = self.bricks
-        return self.shape[0] * nbx * nby * nbz
+        return nbx * nby * nbz
+
+    @property
+    def n_bricks(self) -> int:
+        return self.shape[0] * self.bricks_per_sample
+
+    @property
+    def partials(self) -> Tuple[int, int, int, int]:
+        """The f32 buffer of the bricks' partial sums, (B, bricks a sample,
+        2, Co): brick (x, y, z) of a sample is slot (z * nby + y) * nbx + x."""
+        return self.shape[0], self.bricks_per_sample, 2, self.co
 
     @property
     def tiles(self) -> int:
@@ -154,8 +174,9 @@ class K1Plan:
     @property
     def smem(self) -> int:
         """Dynamic shared memory: 1024 B of alignment slack, the ring, its
-        full/empty barriers and the (2, Co) f32 statistics."""
-        return 1024 + self.stages * (self.stage_bytes + 16) + 8 * self.co
+        full/empty barriers and the 8 consumer warps' (BN, 2) f32
+        statistics slots."""
+        return 1024 + self.stages * (self.stage_bytes + 16) + 64 * self.bn
 
     def tile(self, t: int) -> Optional[Tuple[int, int, int, int, int]]:
         """(b, x0, y0, z0, n0) of tile ``t`` = 2 * cluster tile + CTA rank,
@@ -219,9 +240,9 @@ def k1_plan(cis: Sequence[int], co: int, shape: Sequence[int], sm_count: int = 1
         bd //= 2
     bricks = (-(-w // bw), -(-h // bh), -(-d // bd))
     plan = K1Plan(cis, co, (b, d, h, w), bk, bn, n_tiles, mt, (bw, bh, bd), bricks, 2, 1)
-    stages = min(MAX_STAGES, (SMEM_MAX - 1024 - 8 * co) // (plan.stage_bytes + 16))
+    stages = min(MAX_STAGES, (SMEM_MAX - 1024 - 64 * bn) // (plan.stage_bytes + 16))
     if stages < 2:
-        raise ValueError(f"K1: no two stages of {plan.stage_bytes} bytes fit beside Co {co}")
+        raise ValueError(f"K1: no two stages of {plan.stage_bytes} bytes fit beside BN {bn}")
     return replace(plan, stages=stages, ctas=min(sm_count // 2 * 2, plan.tiles))
 
 
@@ -263,7 +284,8 @@ def conv3d(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
     channel concat; ``weight`` (Co, sum Ci_k, 3, 3, 3); ``bias`` (Co,) or
     None.  Returns (out (B, D, H, W, Co) in the parts' dtype, stats
     (B, 2, Co) f32 or None).  On the card every part must be contiguous
-    bf16 at a 16-byte-aligned address (TMA reads it in place)."""
+    bf16 at a 16-byte-aligned address (TMA reads it in place); the
+    statistics are summed in a fixed order (``K1Plan.partials``)."""
     parts = _as_parts(parts)
     if parts[0].device.type == "cpu":
         return conv3d_plain(parts, weight, bias, with_stats)
@@ -292,19 +314,54 @@ def conv3d(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
     if bias is not None:
         bp = bias.to(device=parts[0].device, dtype=torch.float32).contiguous()
     out = torch.empty((b, d, h, w, co), dtype=_BF16, device=parts[0].device)
-    stats = (torch.zeros((b, 2, co), dtype=torch.float32, device=out.device)
-             if with_stats else None)
+    stats = part = None
+    if with_stats:
+        stats = torch.empty((b, 2, co), dtype=torch.float32, device=out.device)
+        part = torch.empty(plan.partials, dtype=torch.float32, device=out.device)
     ptrs = [p.data_ptr() for p in parts] + [None] * (3 - len(parts))
     cis = cis + [0] * (3 - len(cis))
     err = _build.function("conv3d_stats", "conv3d_stats_bf16", _CONV_ARGS)(
         ptrs[0], ptrs[1], ptrs[2], cis[0], cis[1], cis[2],
         wp.data_ptr(), None if bp is None else bp.data_ptr(), out.data_ptr(),
-        None if stats is None else stats.data_ptr(), b, d, h, w, co,
+        None if stats is None else stats.data_ptr(), None if part is None else part.data_ptr(),
+        b, d, h, w, co,
         plan.bk, plan.bn, plan.mt, *plan.brick, plan.stages, plan.ctas,
         torch.cuda.current_stream(out.device).cuda_stream)
     _build.check(err, "conv3d_stats")
     launches["conv3d_stats"] += 1
     return out, stats
+
+
+def sum_partials(part: torch.Tensor) -> torch.Tensor:
+    """K1's second kernel alone: (B, bricks, 2, Co) f32 partials on the
+    card -> (B, 2, Co) sums in K1's fixed order.  ``conv3d`` launches it
+    itself; this entry times it apart.  Not counted in ``launches``."""
+    b, nb, two, co = part.shape
+    if part.dtype != torch.float32 or not part.is_contiguous() or two != 2 or co % 32:
+        raise TypeError("sum_partials takes contiguous f32 (B, bricks, 2, Co), Co % 32 == 0")
+    stats = torch.empty((b, 2, co), dtype=torch.float32, device=part.device)
+    err = _build.function("conv3d_stats", "conv3d_stats_sum", _SUM_ARGS)(
+        part.data_ptr(), stats.data_ptr(), b, nb, co,
+        torch.cuda.current_stream(part.device).cuda_stream)
+    _build.check(err, "conv3d_stats_sum")
+    return stats
+
+
+def sum_partials_plain(part: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1's second kernel, in its order: row g of
+    ``K1_SUM_GROUPS`` adds bricks g, g + K1_SUM_GROUPS, ... in turn, then
+    the rows are added in order (f32 adds, so equal to the kernel's bits)."""
+    b, nb, _, co = part.shape
+    g = K1_SUM_GROUPS
+    # zeros past the last brick leave each row's sum as it is
+    p = torch.cat([part, part.new_zeros(b, -nb % g, 2, co)], 1).view(b, -1, g, 2, co)
+    rows = p[:, 0]
+    for k in range(1, p.shape[1]):
+        rows = rows + p[:, k]
+    out = rows[:, 0]
+    for j in range(1, g):
+        out = out + rows[:, j]
+    return out
 
 
 # ---------------------------------------------------------------------------

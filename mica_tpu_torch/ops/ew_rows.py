@@ -24,8 +24,9 @@ beside its plain PyTorch version:
 Both are one streaming pass with a few flops per 2-byte element and a
 table that stays in L2: bounded by device-memory bandwidth alone.  A
 program loads its table tile once and walks rows of N with it (K11), or
-sums its rows in registers and adds them with one atomic per (program,
-b, c) (K12, structured like K5).
+sums its rows in registers and writes one partial (b_sz, 2, BLOCK_C) block
+of a buffer, which a second kernel sums in a fixed order (K12, structured
+like K5: no atomics, two calls give the same bits; ``k12_plan``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises.  ``launches`` counts kernel launches.
@@ -48,6 +49,29 @@ _BF16 = torch.bfloat16
 # of a tile, warps of a program (the h-blocked grid, 8x fewer programs,
 # takes twice as many), the programs K11's default grid and K12 aim at
 TILE, WARPS, PROGRAMS_K11, PROGRAMS_K12 = 4096, 4, 4096, 1024
+K12_SUM_ROWS, K12_SUM_C = 32, 32   # partials and channels a step of K12's sum kernel
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, (v - 1).bit_length())
+
+
+def k12_plan(shape, b_sz: int = 8) -> dict:
+    """K12's launch for x of ``shape`` (D, H, R, C): tiles of ``block_r``
+    rows (a multiple of ``b_sz``) x ``block_c`` channels, ``n_r`` x ``n_c``
+    of them, each program summing ``chunk`` of the N = D·H rows over one
+    tile, ``n_chunks`` programs a tile; partial ``(chunk i, row block j)``
+    is block ``i * n_r + j`` of the (1 + n_r·n_chunks, b_sz, 2, C) buffer,
+    whose block 0 the sum kernel fills."""
+    d, h, r, c = (int(v) for v in shape)
+    block_c = min(128, _pow2_at_least(c))
+    block_r = max(min(max(1, TILE // block_c), _pow2_at_least(r)), b_sz)
+    n_r, n_c = -(-r // block_r), -(-c // block_c)
+    n = d * h
+    chunk = -(-n // max(1, min(n, PROGRAMS_K12 // (n_r * n_c))))
+    n_chunks = -(-n // chunk)
+    return dict(block_r=block_r, block_c=block_c, n_r=n_r, n_c=n_c, chunk=chunk,
+                n_chunks=n_chunks, partials=n_r * n_chunks)
 
 
 def rows_ew_plain(x: torch.Tensor, table: torch.Tensor, body: str,
@@ -145,7 +169,7 @@ def _triton():
                         tl.store(z_ptr + offs, xh.to(tl.bfloat16), mask=mask)
 
         @triton.jit
-        def masked_sq_stats_kernel(x_ptr, dy_ptr, st_ptr, N, R, C, CHUNK,
+        def masked_sq_stats_kernel(x_ptr, dy_ptr, buf_ptr, N, R, C, CHUNK, N_R,
                                    B_SZ: tl.constexpr, BLOCK_R: tl.constexpr,
                                    BLOCK_C: tl.constexpr):
             rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
@@ -167,23 +191,40 @@ def _triton():
             # B_SZ: row i of the tile is in batch i mod B_SZ
             sg = tl.sum(tl.reshape(acc_g, (BLOCK_R // B_SZ, B_SZ, BLOCK_C)), axis=0)
             sq = tl.sum(tl.reshape(acc_q, (BLOCK_R // B_SZ, B_SZ, BLOCK_C)), axis=0)
+            # this program's partial: block 1 + chunk * N_R + row block of
+            # the (1 + partials, B_SZ, 2, C) buffer
+            blk = 1 + tl.program_id(2) * N_R + tl.program_id(0)
             b = tl.arange(0, B_SZ)
-            ptr = st_ptr + b[:, None] * 2 * C + cols[None, :]
+            ptr = buf_ptr + (blk * B_SZ + b[:, None]) * 2 * C + cols[None, :]
             bmask = (b < B_SZ)[:, None] & cmask[None, :]
-            # one atomic per (program, b, c): the partial sums of CHUNK rows
-            tl.atomic_add(ptr, sg, mask=bmask)
-            tl.atomic_add(ptr + C, sq, mask=bmask)
+            tl.store(ptr, sg, mask=bmask)
+            tl.store(ptr + C, sq, mask=bmask)
 
-        _kernels = (triton, rows_ew_kernel, masked_sq_stats_kernel)
+        @triton.jit
+        def masked_sq_stats_sum_kernel(buf_ptr, C, P, BLOCK_P: tl.constexpr,
+                                       BLOCK_C: tl.constexpr):
+            # block 0 of the buffer, row (b, k) = the sum of the P partials'
+            # rows (b, k) in a fixed order: BLOCK_P at a time, then across
+            cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
+            row = tl.program_id(1)                  # b * 2 + k
+            R2 = tl.num_programs(1)
+            cmask = cols < C
+            acc = tl.zeros((BLOCK_P, BLOCK_C), dtype=tl.float32)
+            for p0 in range(0, P, BLOCK_P):
+                p = p0 + tl.arange(0, BLOCK_P)
+                offs = ((1 + p) * R2 + row)[:, None] * C + cols[None, :]
+                acc += tl.load(buf_ptr + offs, mask=(p < P)[:, None] & cmask[None, :], other=0.0)
+            tl.store(buf_ptr + row * C + cols, tl.sum(acc, axis=0), mask=cmask)
+
+        _kernels = (triton, rows_ew_kernel, (masked_sq_stats_kernel, masked_sq_stats_sum_kernel))
     return _kernels
 
 
-def _tile(r: int, c: int, triton, least_r: int = 1):
+def _tile(r: int, c: int, triton):
     """(BLOCK_R, BLOCK_C): up to 128 channels, ``TILE`` elements a tile,
     no more rows than R needs."""
     block_c = min(128, triton.next_power_of_2(c))
-    block_r = min(max(1, TILE // block_c), triton.next_power_of_2(r))
-    return max(block_r, least_r), block_c
+    return min(max(1, TILE // block_c), triton.next_power_of_2(r)), block_c
 
 
 def _check_rows(name: str, *ts: torch.Tensor) -> None:
@@ -250,14 +291,24 @@ def masked_sq_stats(x: torch.Tensor, dy: torch.Tensor, b_sz: int = 8) -> torch.T
         raise ValueError(f"masked_sq_stats: b_sz {b_sz} is not a power of two up to 64")
     _check_rows("masked_sq_stats", x, dy)
     d, h, r, c = x.shape
-    triton, _, kernel = _triton()
-    block_r, block_c = _tile(r, c, triton, least_r=b_sz)
-    n_r, n_c = triton.cdiv(r, block_r), triton.cdiv(c, block_c)
-    # each program adds 2·b_sz·BLOCK_C partial sums atomically
-    n = d * h
-    chunk = triton.cdiv(n, max(1, min(n, PROGRAMS_K12 // (n_r * n_c))))
-    stats = torch.zeros((b_sz, 2, c), dtype=torch.float32, device=x.device)
-    kernel[(n_r, n_c, triton.cdiv(n, chunk))](x, dy, stats, n, r, c, chunk, B_SZ=b_sz,
-                                              BLOCK_R=block_r, BLOCK_C=block_c, num_warps=WARPS)
+    triton, _, (kernel, _) = _triton()
+    plan = k12_plan(x.shape, b_sz)
+    # no atomics and no zero fill: each program writes its own partial block
+    buf = torch.empty((1 + plan["partials"], b_sz, 2, c), dtype=torch.float32, device=x.device)
+    kernel[(plan["n_r"], plan["n_c"], plan["n_chunks"])](
+        x, dy, buf, d * h, r, c, plan["chunk"], plan["n_r"], B_SZ=b_sz,
+        BLOCK_R=plan["block_r"], BLOCK_C=plan["block_c"], num_warps=WARPS)
+    sum_partial_blocks(buf)
     launches["masked_sq_stats"] += 1
-    return stats
+    return buf[0]
+
+
+def sum_partial_blocks(buf: torch.Tensor) -> torch.Tensor:
+    """K12's second pass alone: block 0 of the (1 + P, b_sz, 2, C) f32
+    buffer on the card = the sum of blocks 1..P in a fixed order.
+    ``masked_sq_stats`` launches it itself; this entry times it apart."""
+    triton, _, (_, sum_kernel) = _triton()
+    p1, b_sz, _, c = buf.shape
+    sum_kernel[(triton.cdiv(c, K12_SUM_C), 2 * b_sz)](
+        buf, c, p1 - 1, BLOCK_P=K12_SUM_ROWS, BLOCK_C=K12_SUM_C, num_warps=4)
+    return buf[0]

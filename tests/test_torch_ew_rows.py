@@ -122,3 +122,45 @@ def test_wrapper_refuses_a_body_without_its_inputs():
         ew_rows.rows_ew(tx["x"], tx["ms2"], "k1", dy=tx["dy"])
     with pytest.raises(ValueError):
         port.build("nope", "cpu")
+
+
+def _k12_emulated(x, dy, b_sz):
+    """K12 as ``k12_plan`` lays it out: each program's (b_sz, 2, block_c)
+    partial over its chunk of N and its row block into its own block of
+    the buffer (NaN until written: the card does not zero it), then the
+    blocks summed in order."""
+    d, h, r, c = x.shape
+    plan = ew_rows.k12_plan(x.shape, b_sz)
+    g = torch.where(x > 0, dy, torch.zeros((), dtype=dy.dtype)).float().reshape(d * h, r, c)
+    buf = torch.full((plan["partials"], b_sz, 2, c), float("nan"))
+    for i in range(plan["n_chunks"]):
+        n = g[i * plan["chunk"]:(i + 1) * plan["chunk"]]
+        for j in range(plan["n_r"]):
+            rows = n[:, j * plan["block_r"]:(j + 1) * plan["block_r"]].sum(0)
+            # row k of the tile is in batch k mod b_sz; a missing row is zero
+            rows = torch.cat([rows, rows.new_zeros(plan["block_r"] - len(rows), c)])
+            sq = (n[:, j * plan["block_r"]:(j + 1) * plan["block_r"]] ** 2).sum(0)
+            sq = torch.cat([sq, sq.new_zeros(plan["block_r"] - len(sq), c)])
+            blk = i * plan["n_r"] + j
+            buf[blk, :, 0] = rows.view(-1, b_sz, c).sum(0)
+            buf[blk, :, 1] = sq.view(-1, b_sz, c).sum(0)
+    assert not torch.isnan(buf).any()
+    return buf.sum(0), plan
+
+
+@pytest.mark.parametrize("shape,b_sz", [((4, 3, 40, 24), 8), ((2, 5, 64, 160), 8),
+                                        ((3, 2, 16, 32), 16)])
+def test_k12_plan_partials_cover_each_row_once(shape, b_sz):
+    """The partial blocks of ``k12_plan`` cover every (n, r, c) once, with
+    row blocks a multiple of b_sz, and their sum is the plain version's."""
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g).to(torch.bfloat16)
+    dy = torch.randn(shape, generator=g).to(torch.bfloat16)
+    got, plan = _k12_emulated(x, dy, b_sz)
+    d, h, r, c = shape
+    assert plan["block_r"] % b_sz == 0 and plan["n_r"] * plan["block_r"] >= r
+    assert plan["n_c"] * plan["block_c"] >= c
+    assert (plan["n_chunks"] - 1) * plan["chunk"] < d * h <= plan["n_chunks"] * plan["chunk"]
+    want = ew_rows.masked_sq_stats_plain(x, dy, b_sz)
+    mag = ew_rows.masked_sq_stats_plain(x, dy.abs(), b_sz)
+    assert ((got - want).abs() <= 1e-5 * mag + 1e-6).all()

@@ -1,6 +1,8 @@
 """The port's data-parallel paths (``mica_tpu_torch/parallel``, the
 engine's replicated and ``shard_volumes`` modes, the data-parallel
-``Trainer``, ``cli.train`` under a group, the dry run) on the CPU.
+``Trainer``) on the CPU, against the JAX package's mesh paths.
+``cli.train`` under a group, the dry run, a process without a group and a
+failing rank are in ``tests/test_torch_parallel_procs.py``.
 
 Ranks are processes that ``parallel.dryrun.spawn`` starts on gloo with a
 ``file://`` rendezvous in a temporary directory, a process-group timeout
@@ -24,10 +26,6 @@ Tolerances:
     0.1 of the largest norm).
 """
 
-import functools
-import time
-from pathlib import Path
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,52 +41,34 @@ from mica_tpu.models.mica import MICA as JaxMICA
 from mica_tpu.parallel import distributed as jdist
 from mica_tpu.parallel import mesh as jmesh
 from mica_tpu.train import loss as jloss
-from mica_tpu_torch.cli import makedata
-from mica_tpu_torch.cli import predict as cli_predict
 from mica_tpu_torch.infer.engine import SlidingWindowPredictor
-from mica_tpu_torch.io import mrc as mrc_io
-from mica_tpu_torch.io import pdb as pdb_io
 from mica_tpu_torch.models.convert import state_dict_from_jax_params
-from mica_tpu_torch.models.mica import MICA, Dropout, dropout_rate_for_epoch
-from mica_tpu_torch.ops import window
-from mica_tpu_torch.parallel import distributed, dryrun
+from mica_tpu_torch.models.mica import MICA, Dropout
+from mica_tpu_torch.parallel import dryrun
 from mica_tpu_torch.parallel.mesh import Mesh, make_mesh, pad_to_multiple
 from mica_tpu_torch.train import augment, data
 from mica_tpu_torch.train.loss import task_lambdas
-from mica_tpu_torch.utils.synthetic import make_chain
 
 BASE, CORE, HALO = ranks.BASE, ranks.CORE, ranks.HALO
 WORLD = 2
-TESTS = Path(__file__).resolve().parent
-SPAWN = dict(device="cpu", timeout=240.0, group_timeout=120, pythonpath=[str(TESTS)],
-             env={"OMP_NUM_THREADS": "2"})
+SPAWN = ranks.SPAWN
 PROB_KEYS = ranks.VOLUME_KEYS[:3]
 # train runs at world 2: (tag, seed, augmentation, AF3 blanking, dropout)
 AUG = dict(tag="aug", seed=3, augment=True, blank=0.5, rate=0.1)
 PLAIN = dict(tag="plain", seed=3, augment=False, blank=0.0, rate=0.0)
 
 
-def _batch(n=4, d=16, seed=11):
-    r = np.random.default_rng(seed)
-    dens = r.random((n, d, d, d)).astype(np.float32)
-    af = (r.random((n, 24, d, d, d)) < 0.03).astype(np.float32)
-    af[0] = 0.0  # a density-only sample in each rank's rows
-    af[2] = 0.0
-    tgt = [r.integers(0, c, (n, d, d, d)).astype(np.int32) for c in (4, 4, 21)]
-    return (dens, af, *tgt)
-
-
-def _volumes():
-    """a: random, 3 X cores (does not divide the world); b: one blob in an
-    empty (48, 26, 13), 4 X cores (divides it)."""
-    r = np.random.default_rng(0)
-    a = r.random((26, 26, 13)).astype(np.float32)
-    a_af = (r.random((24, 26, 26, 13)) < 0.02).astype(np.float32)
-    b = np.zeros((48, 26, 13), np.float32)
-    b[30:40, 5:15, 2:10] = r.random((10, 10, 8))
-    b_af = np.zeros((24, 48, 26, 13), np.float32)
-    b_af[5, 33, 8, 4] = 1.0
-    return dict(a_vol=a, a_af=a_af, b_vol=b, b_af=b_af)
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This process's torch ops on one thread while the file runs.  Under
+    a loaded suite (several test workers on the host's cores) a pool of
+    one thread a core waits for descheduled threads at every parallel
+    region: the file ran 12-58x slower there than alone.  The ranks get
+    ``OMP_NUM_THREADS`` 2 (``SPAWN``)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")
@@ -101,8 +81,8 @@ def jax_params():
 def workdir(tmp_path_factory, jax_params):
     wd = tmp_path_factory.mktemp("world2")
     torch.save(state_dict_from_jax_params(jax_params), wd / "params.pt")
-    np.savez(wd / "volumes.npz", **_volumes())
-    np.savez(wd / "batch.npz", **dict(zip(("d", "af", "bb", "ca", "aa"), _batch())))
+    np.savez(wd / "volumes.npz", **ranks.volumes())
+    np.savez(wd / "batch.npz", **dict(zip(("d", "af", "bb", "ca", "aa"), ranks.batch())))
     return wd
 
 
@@ -166,37 +146,6 @@ def test_initialize_is_idempotent_and_the_card_still_refused(world2):
         assert c["card_refused"] == (not torch.cuda.is_available())
 
 
-def test_one_process_is_a_world_of_one_and_exchanges_nothing(monkeypatch):
-    """Without a process group ``use_mesh`` gives world size 1, and the
-    engine (both modes) and a trainer step call no collective and give
-    the meshless results."""
-    def refuse(*a, **k):
-        raise AssertionError("a collective ran without a process group")
-
-    for name in ("all_reduce_sum_", "exchange_rows", "broadcast_"):
-        monkeypatch.setattr(distributed, name, refuse)
-    m = make_mesh("cpu")
-    assert (m.rank, m.size, m.distributed, m.is_main) == (0, 1, False, True)
-    vol = _volumes()
-    model = MICA(base=BASE, dtype=torch.float32).init_weights(torch.Generator().manual_seed(1))
-    kw = dict(batch_size=3, dtype=torch.float32, base_filters=BASE, core=CORE, halo=HALO,
-              device="cpu")
-    want = SlidingWindowPredictor(model, **kw).predict_volume(vol["a_vol"], vol["a_af"])
-    for sv in (False, True):
-        pred = SlidingWindowPredictor(model, use_mesh=True, shard_volumes=sv, **kw)
-        assert pred.mesh == m and pred.batch_size == 3
-        got = pred.predict_volume(vol["a_vol"], vol["a_af"])
-        for k in ranks.VOLUME_KEYS:
-            np.testing.assert_array_equal(got[k], want[k], err_msg=(sv, k))
-    from mica_tpu_torch.train.trainer import Trainer
-
-    t = Trainer(base_filters=BASE, dtype=torch.float32, device="cpu")
-    assert t.mesh == m and t.is_main
-    state = t.init_state()
-    met = t.train_step(state, _batch(n=3, d=8), task_lambdas(0), dropout_rate_for_epoch(0))
-    assert np.isfinite(float(met["total_loss"]))
-
-
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
@@ -205,7 +154,7 @@ def test_one_process_is_a_world_of_one_and_exchanges_nothing(monkeypatch):
 @pytest.fixture(scope="module")
 def jax_engine(jax_params):
     """JAX's replicated and shard_volumes engines on the 8-device mesh."""
-    v = _volumes()
+    v = ranks.volumes()
     kw = dict(batch_size=8, dtype=jnp.float32, base_filters=BASE, core=CORE, halo=HALO,
               mesh=jmesh.make_mesh())
     out = {}
@@ -284,7 +233,7 @@ def _world1(workdir, run):
     sd = torch.load(workdir / "params.pt", weights_only=True)
     trainer, state = ranks._trainer(run["seed"], run["augment"], run["blank"], sd)
     assert not trainer.mesh.distributed
-    batch = _batch()
+    batch = ranks.batch()
     val = trainer.run_validation(state, [batch, tuple(b[:3] for b in batch)], 3)
     met = trainer.train_step(state, batch, task_lambdas(3), run["rate"])
     return (float(met["total_loss"]), ranks._flat_grads(trainer.model),
@@ -317,7 +266,7 @@ def test_world2_step_matches_the_jax_loss_and_gradient_on_a_mesh(world2, jax_par
     with the batch sharded over a 2-device mesh, as its train step takes
     them, against the PLAIN run's reduced gradient."""
     results, _, steps = world2
-    dens, af3, *tgt = _batch()
+    dens, af3, *tgt = ranks.batch()
     jm = jmesh.make_mesh(jax.devices()[:WORLD])
     shard, repl = NamedSharding(jm, P(jmesh.DATA_AXIS)), NamedSharding(jm, P())
     lam = jnp.asarray(task_lambdas(3), jnp.float32)
@@ -378,7 +327,7 @@ def test_dropout_rows_are_the_whole_batch_masks_rows():
 
 
 def test_augment_rows_are_the_whole_batch_augmentation():
-    dens, af3, *tgt = _batch(n=6, d=8, seed=4)
+    dens, af3, *tgt = ranks.batch(n=6, d=8, seed=4)
     d = torch.from_numpy(dens)[:, None]
     a = torch.from_numpy(af3)
     t = torch.from_numpy(np.stack(tgt, axis=1))
@@ -405,62 +354,3 @@ def test_batch_iterator_reads_a_ranks_rows():
         for f in range(5):
             np.testing.assert_array_equal(got[0].rows[f], whole[0][f][2 * r:2 * r + 2])
             np.testing.assert_array_equal(got[1][f], whole[1][f])  # 3 rows: whole
-
-
-# ---------------------------------------------------------------------------
-# cli.train, the dry run, a failing rank
-# ---------------------------------------------------------------------------
-
-
-def _makedata_set(tmp_path, monkeypatch):
-    """A tiny ``cli.makedata`` set: 16^3 windows (core 8, halo 4) of a
-    synthetic chain's map; a 64^3 window trains in ~15 s on the CPU."""
-    shape = (32, 32, 24)
-    ca = make_chain(16, shape, seed=3)
-    density = np.zeros(shape, np.float32)
-    idx = np.rint(ca).astype(int)
-    density[idx[:, 0], idx[:, 1], idx[:, 2]] = 5.0
-    mrc_io.write_mrc(tmp_path / "map.mrc", np.transpose(density, (2, 1, 0)), voxel_size=1.0)
-    pdb_io.write_ca_pdb(tmp_path / "model.pdb", [ca], res_names_by_chain=[list("ACDEFGHIKLMNPQRS")])
-    monkeypatch.setattr(data, "extract_windows",
-                        functools.partial(window.extract_windows, core=8, halo=4))
-    assert makedata.main(["--map", str(tmp_path / "map.mrc"), "--model",
-                          str(tmp_path / "model.pdb"), "--output", str(tmp_path / "packed"),
-                          "--device", "cpu"]) == 0
-    (packed,) = (tmp_path / "packed").glob("*.npz")
-    packed.rename(tmp_path / "packed.npz")
-    return len(data.ArrayDataset.load(str(tmp_path / "packed.npz")))
-
-
-def test_cli_train_world2_saves_on_rank0_only(tmp_path, monkeypatch):
-    n = _makedata_set(tmp_path, monkeypatch)
-    assert n >= 6
-    results = dryrun.spawn("torch_parallel_ranks:cli_train", WORLD,
-                           {"workdir": str(tmp_path)}, **SPAWN)
-    assert [r["rc"] for r in results] == [0, 0]
-    assert results[1]["files"] == [] and not (tmp_path / "logs_1").exists()
-    (pt,) = results[0]["files"]
-    assert pt.startswith("mica_epoch_0") and pt.endswith(".pt")
-    vol = np.random.default_rng(0).random((16, 16, 16)).astype(np.float32)
-    mrc_io.write_mrc(tmp_path / "m.mrc", vol, voxel_size=1.0)
-    assert cli_predict.main(["-m", str(tmp_path / "m.mrc"), "-o", str(tmp_path / "pred"),
-                             "--model_checkpoint", str(tmp_path / "out_0" / pt),
-                             "--base_filters", str(BASE), "--window_core", "8",
-                             "--batch_size", "4", "--float32", "--device", "cpu"]) == 0
-    assert (tmp_path / "pred" / "backbone_probability.mrc").exists()
-
-
-def test_dryrun_multigpu_on_the_cpu(monkeypatch, capsys):
-    monkeypatch.setenv("OMP_NUM_THREADS", "2")
-    results = dryrun.dryrun_multigpu(WORLD, device="cpu", timeout=240.0)
-    assert len(results) == WORLD and all(r["shard_err"] <= 1e-4 for r in results)
-    assert "dryrun_multigpu(2): train loss" in capsys.readouterr().out
-
-
-def test_a_failing_rank_stops_its_peers():
-    """Rank 1 raises while rank 0 waits in a collective: the run raises
-    with rank 1's error at once, not at the group's timeout."""
-    t0 = time.time()
-    with pytest.raises(RuntimeError, match=r"(?s)exited.*rank 1 fails on purpose"):
-        dryrun.spawn("torch_parallel_ranks:fail_on_rank_1", WORLD, **SPAWN)
-    assert time.time() - t0 < 60

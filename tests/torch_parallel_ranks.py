@@ -1,6 +1,8 @@
-"""What each rank runs for tests/test_torch_parallel.py, in processes that
-``mica_tpu_torch.parallel.dryrun.spawn`` starts (gloo on the CPU).  No JAX
-here: the test process computes the references.  Each function reads its
+"""What each rank runs for tests/test_torch_parallel.py and
+tests/test_torch_parallel_procs.py, in processes that
+``mica_tpu_torch.parallel.dryrun.spawn`` starts (gloo on the CPU), and
+the inputs both files make (``batch``, ``volumes``).  No JAX here: the
+test process computes the references.  Each rank function reads its
 inputs from ``workdir``, writes arrays there under the rank's name and
 returns a small JSON result."""
 
@@ -12,8 +14,36 @@ import numpy as np
 import torch
 
 BASE, CORE, HALO = 16, 12, 2
+# ``dryrun.spawn``'s arguments in the tests: gloo on the CPU, a deadline of
+# 240 s, a process-group timeout of 120 s, two torch threads a rank
+SPAWN = dict(device="cpu", timeout=240.0, group_timeout=120,
+             pythonpath=[str(Path(__file__).resolve().parent)], env={"OMP_NUM_THREADS": "2"})
 VOLUME_KEYS = ("backbone_probability", "carbon_alpha_probability",
                "amino_acid_probability", "amino_acid_prediction")
+
+
+def batch(n=4, d=16, seed=11):
+    """A training batch (density, AF3, three targets) of n d^3 windows."""
+    r = np.random.default_rng(seed)
+    dens = r.random((n, d, d, d)).astype(np.float32)
+    af = (r.random((n, 24, d, d, d)) < 0.03).astype(np.float32)
+    af[0] = 0.0  # a density-only sample in each rank's rows
+    af[2] = 0.0
+    tgt = [r.integers(0, c, (n, d, d, d)).astype(np.int32) for c in (4, 4, 21)]
+    return (dens, af, *tgt)
+
+
+def volumes():
+    """a: random, 3 X cores (does not divide the world); b: one blob in an
+    empty (48, 26, 13), 4 X cores (divides it)."""
+    r = np.random.default_rng(0)
+    a = r.random((26, 26, 13)).astype(np.float32)
+    a_af = (r.random((24, 26, 26, 13)) < 0.02).astype(np.float32)
+    b = np.zeros((48, 26, 13), np.float32)
+    b[30:40, 5:15, 2:10] = r.random((10, 10, 8))
+    b_af = np.zeros((24, 48, 26, 13), np.float32)
+    b_af[5, 33, 8, 4] = 1.0
+    return dict(a_vol=a, a_af=a_af, b_vol=b, b_af=b_af)
 
 
 def _flat_grads(model):
