@@ -41,7 +41,6 @@ to the host.  Under a mesh only rank 0 writes dumps.
 
 from __future__ import annotations
 
-import time
 from collections.abc import Mapping
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -56,6 +55,7 @@ from ..ops.window import CORE, HALO, window_counts, window_starts
 from ..ops.window_copy import gather_windows, scatter_cores, starts_tensor
 from ..parallel import distributed
 from ..parallel.mesh import make_mesh, pad_to_multiple
+from ..utils.spans import count, span
 
 NUM_AA = 20
 NUM_AF_CHANNELS = 24
@@ -169,6 +169,13 @@ def _dump_window(dump_dir: Path, reference: bool, bb: np.ndarray, ca: np.ndarray
     }
     for key, data in quantities.items():
         np.savez(dump_dir / f"{stem}_{key}.npz", data=data, metadata=meta)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` copied to the host, its bytes counted."""
+    a = t.cpu().numpy()
+    count("d2h_bytes", a.nbytes)
+    return a
 
 
 def _as_state_dict(params) -> Mapping:
@@ -303,79 +310,87 @@ class SlidingWindowPredictor:
         dump_reference = dump_dir is not None and dump_format == "reference"
         if dump_reference and self.shard_volumes:
             raise ValueError("reference-layout dumps need replicated outputs")
-        t0 = time.time()
-        dev = self.device
-        mesh, exchanges = self.mesh, self._exchanges
-        writes = mesh is None or mesh.is_main
-        core_n, halo, win = self.core, self.halo, self.window
-        shape = tuple(volume.shape)
-        counts = window_counts(shape, core_n)
-        padded_shape = tuple(n * core_n for n in counts)
-        pads = [(halo, (padded_shape[a] - core_n) + win - halo - shape[a]) for a in range(3)]
-        np_padded = np.pad(np.asarray(volume, np.float32), pads)
-        padded_map = torch.from_numpy(np_padded).to(dev)
+        with span("engine.setup") as setup:
+            dev = self.device
+            mesh, exchanges = self.mesh, self._exchanges
+            writes = mesh is None or mesh.is_main
+            core_n, halo, win = self.core, self.halo, self.window
+            shape = tuple(volume.shape)
+            counts = window_counts(shape, core_n)
+            padded_shape = tuple(n * core_n for n in counts)
+            pads = [(halo, (padded_shape[a] - core_n) + win - halo - shape[a]) for a in range(3)]
+            with span("engine.pad"):
+                np_padded = np.pad(np.asarray(volume, np.float32), pads)
+            with span("engine.h2d"):
+                padded_map = torch.from_numpy(np_padded).to(dev)
+                count("h2d_bytes", np_padded.nbytes)
 
-        np_af, padded_af, af_float = None, None, False
-        if af_encoding is not None:
-            if af_encoding.ndim == 3 and af_encoding.dtype == np.uint32:
-                np_af = np.pad(af_encoding, pads)
+            np_af, padded_af, af_float = None, None, False
+            if af_encoding is not None:
+                with span("engine.pack"):
+                    if af_encoding.ndim == 3 and af_encoding.dtype == np.uint32:
+                        packed = af_encoding
+                    else:
+                        af_arr = np.asarray(af_encoding)
+                        if af_arr.dtype.kind in "iub":
+                            binary = af_arr.min() >= 0 and af_arr.max() <= 1
+                        else:
+                            binary = bool(((af_arr == 0) | (af_arr == 1)).all())
+                        if binary:
+                            packed = pack_af_encoding(af_arr)
+                        else:
+                            # fractional encodings cannot be bit-packed
+                            packed = np.moveaxis(af_arr.astype(np.float32), 0, -1)
+                            af_float = True
+                    if not af_float:
+                        # 24 bits used: the int32 view of the bitfield is exact
+                        packed = packed.view(np.int32)
+                with span("engine.pad"):
+                    np_af = np.pad(packed, pads + [(0, 0)] if af_float else pads)
+                with span("engine.h2d"):
+                    padded_af = torch.from_numpy(np_af).to(dev)
+                    count("h2d_bytes", np_af.nbytes)
+            with_af = np_af is not None
+
+            starts = window_starts(shape, core_n)
+            with span("engine.occupancy"):
+                nonempty = _window_nonempty(np_padded, counts, core_n, halo)
+                if with_af:
+                    nonempty |= _window_nonempty(np_af, counts, core_n, halo)
+            compute_starts = starts[nonempty]
+            empty_starts = starts[~nonempty]
+            self.timing["n_empty"] = int(len(empty_starts))
+
+            # this rank's X slab of the volumes: all of them unless sharded
+            x0, x_local = 0, padded_shape[0]
+            if self.shard_volumes:
+                x_local = pad_to_multiple(counts[0], mesh.size) // mesh.size * core_n
+                x0 = mesh.rank * x_local
+
+            average = self.blend == "average"
+            full = average or dump_reference
+            forwards0 = self.n_forwards
+            need_zero = not average or len(empty_starts)
+            z = self._zero_core(with_af, af_float, full) if need_zero else None
+            if average:
+                acc_shape = tuple(np_padded.shape)
+                bb_v = torch.zeros(acc_shape, device=dev)
+                ca_v = torch.zeros(acc_shape, device=dev)
+                aa_v = torch.zeros(acc_shape + (NUM_AA,), device=dev)
+                cnt_v = torch.zeros(acc_shape, device=dev)
+                vols = (bb_v, ca_v, aa_v, cnt_v)
             else:
-                af_arr = np.asarray(af_encoding)
-                if af_arr.dtype.kind in "iub":
-                    binary = af_arr.min() >= 0 and af_arr.max() <= 1
-                else:
-                    binary = bool(((af_arr == 0) | (af_arr == 1)).all())
-                if binary:
-                    np_af = np.pad(pack_af_encoding(af_arr), pads)
-                else:
-                    # fractional encodings cannot be bit-packed
-                    np_af = np.pad(np.moveaxis(af_arr.astype(np.float32), 0, -1),
-                                   pads + [(0, 0)])
-                    af_float = True
-            if not af_float:
-                # 24 bits used: the int32 view of the bitfield is exact
-                np_af = np_af.view(np.int32)
-            padded_af = torch.from_numpy(np_af).to(dev)
-        with_af = np_af is not None
-
-        starts = window_starts(shape, core_n)
-        nonempty = _window_nonempty(np_padded, counts, core_n, halo)
-        if with_af:
-            nonempty |= _window_nonempty(np_af, counts, core_n, halo)
-        compute_starts = starts[nonempty]
-        empty_starts = starts[~nonempty]
-        self.timing["n_empty"] = int(len(empty_starts))
-
-        # this rank's X slab of the volumes: all of them unless sharded
-        x0, x_local = 0, padded_shape[0]
-        if self.shard_volumes:
-            x_local = pad_to_multiple(counts[0], mesh.size) // mesh.size * core_n
-            x0 = mesh.rank * x_local
-
-        average = self.blend == "average"
-        full = average or dump_reference
-        forwards0 = self.n_forwards
-        need_zero = not average or len(empty_starts)
-        z = self._zero_core(with_af, af_float, full) if need_zero else None
-        if average:
-            acc_shape = tuple(np_padded.shape)
-            bb_v = torch.zeros(acc_shape, device=dev)
-            ca_v = torch.zeros(acc_shape, device=dev)
-            aa_v = torch.zeros(acc_shape + (NUM_AA,), device=dev)
-            cnt_v = torch.zeros(acc_shape, device=dev)
-            vols = (bb_v, ca_v, aa_v, cnt_v)
-        else:
-            reps = (x_local // core_n,) + tuple(counts[1:])
-            zc = tuple(_core_of(v, halo, core_n, batched=False) for v in z) if full else z
-            bb_v = zc[0].repeat(reps)
-            ca_v = zc[1].repeat(reps)
-            aa_v = zc[2].repeat(reps + (1,))
-            vols = (bb_v, ca_v, aa_v)
-        self.timing["acc_bytes_per_device"] = int(sum(v.numel() * v.element_size()
-                                                      for v in vols))
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        self.timing["setup"] = time.time() - t0
+                reps = (x_local // core_n,) + tuple(counts[1:])
+                zc = tuple(_core_of(v, halo, core_n, batched=False) for v in z) if full else z
+                bb_v = zc[0].repeat(reps)
+                ca_v = zc[1].repeat(reps)
+                aa_v = zc[2].repeat(reps + (1,))
+                vols = (bb_v, ca_v, aa_v)
+            self.timing["acc_bytes_per_device"] = int(sum(v.numel() * v.element_size()
+                                                          for v in vols))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        self.timing["setup"] = setup.seconds
 
         def paste(bb_c, ca_c, aa_c, s):
             x, y, zz = (int(v) for v in s)
@@ -402,90 +417,90 @@ class SlidingWindowPredictor:
                 _dump_window(dump_dir, dump_reference, bb_c[i], ca_c[i], aa_c[i], s,
                              core_n, shape)
 
-        t1 = time.time()
-        bsz = self.batch_size
-        copy_kernels = not average and not af_float
-        if copy_kernels and len(compute_starts):
-            # a window's origin in the padded frame is its core's start
-            dev_starts = starts_tensor(compute_starts, padded_map.shape, win, dev)
-            # the cores K10 pastes into this rank's slab, shifted into it;
-            # starts run x-major, so a batch's share is one run of rows
-            in_slab = (compute_starts[:, 0] >= x0) & (compute_starts[:, 0] < x0 + x_local)
-            slab_starts = dev_starts
-            if self.shard_volumes:
-                slab_starts = starts_tensor(compute_starts[in_slab] - np.array([x0, 0, 0]),
-                                            bb_v.shape, core_n, dev)
-            slab_before = np.concatenate([[0], np.cumsum(in_slab)])
-        for ofs in range(0, len(compute_starts), bsz):
-            batch = compute_starts[ofs:ofs + bsz]
-            mine = mesh.rows(len(batch)) if mesh is not None else slice(0, len(batch))
-            if mine.stop == mine.start:
-                outs = self._no_rows(full)
-            elif copy_kernels:
-                got = gather_windows(padded_map, padded_af,
-                                     dev_starts[ofs + mine.start:ofs + mine.stop], win)
-                wins, afs = got if with_af else (got, None)
-                outs = self._forward(wins, afs, full)
-            else:
-                wins = torch.stack([padded_map[x:x + win, y:y + win, zz:zz + win]
-                                    for x, y, zz in batch[mine]])
-                afs = None
-                if with_af:
-                    afs = torch.stack([padded_af[x:x + win, y:y + win, zz:zz + win]
-                                       for x, y, zz in batch[mine]])
-                outs = self._forward(wins, afs, full)
-            if exchanges:
-                outs = distributed.exchange_rows(outs, mine, len(batch))
-            dump(outs, batch)
-            if full and not average:
-                outs = tuple(_core_of(v, halo, core_n) for v in outs)
-            if copy_kernels:
-                a, b = slab_before[ofs], slab_before[ofs + len(batch)]
-                if b > a:
-                    r0 = int(np.argmax(in_slab[ofs:ofs + len(batch)]))
-                    scatter_cores((bb_v, ca_v, aa_v),
-                                  tuple(c[r0:r0 + b - a].contiguous() for c in outs),
-                                  slab_starts[a:b], int(b - a), core_n)
-                continue
-            for i, s in enumerate(batch):
-                paste(outs[0][i], outs[1][i], outs[2][i], s)
-        if average:
-            for s in empty_starts:
-                paste(z[0], z[1], z[2], s)
-        if dump_dir is not None and writes and len(empty_starts):
-            # identical (all-zero) inputs give identical outputs
-            zb, zca, zaa = (v.cpu().numpy() for v in z)
-            for s in empty_starts:
-                _dump_window(dump_dir, dump_reference, zb, zca, zaa, s, core_n, shape)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        self.timing["inference"] = time.time() - t1
+        with span("engine.inference") as inference:
+            bsz = self.batch_size
+            copy_kernels = not average and not af_float
+            if copy_kernels and len(compute_starts):
+                # a window's origin in the padded frame is its core's start
+                dev_starts = starts_tensor(compute_starts, padded_map.shape, win, dev)
+                # the cores K10 pastes into this rank's slab, shifted into it;
+                # starts run x-major, so a batch's share is one run of rows
+                in_slab = (compute_starts[:, 0] >= x0) & (compute_starts[:, 0] < x0 + x_local)
+                slab_starts = dev_starts
+                if self.shard_volumes:
+                    slab_starts = starts_tensor(compute_starts[in_slab] - np.array([x0, 0, 0]),
+                                                bb_v.shape, core_n, dev)
+                slab_before = np.concatenate([[0], np.cumsum(in_slab)])
+            for ofs in range(0, len(compute_starts), bsz):
+                batch = compute_starts[ofs:ofs + bsz]
+                mine = mesh.rows(len(batch)) if mesh is not None else slice(0, len(batch))
+                if mine.stop == mine.start:
+                    outs = self._no_rows(full)
+                elif copy_kernels:
+                    got = gather_windows(padded_map, padded_af,
+                                         dev_starts[ofs + mine.start:ofs + mine.stop], win)
+                    wins, afs = got if with_af else (got, None)
+                    outs = self._forward(wins, afs, full)
+                else:
+                    wins = torch.stack([padded_map[x:x + win, y:y + win, zz:zz + win]
+                                        for x, y, zz in batch[mine]])
+                    afs = None
+                    if with_af:
+                        afs = torch.stack([padded_af[x:x + win, y:y + win, zz:zz + win]
+                                           for x, y, zz in batch[mine]])
+                    outs = self._forward(wins, afs, full)
+                if exchanges:
+                    outs = distributed.exchange_rows(outs, mine, len(batch))
+                dump(outs, batch)
+                if full and not average:
+                    outs = tuple(_core_of(v, halo, core_n) for v in outs)
+                if copy_kernels:
+                    a, b = slab_before[ofs], slab_before[ofs + len(batch)]
+                    if b > a:
+                        r0 = int(np.argmax(in_slab[ofs:ofs + len(batch)]))
+                        scatter_cores((bb_v, ca_v, aa_v),
+                                      tuple(c[r0:r0 + b - a].contiguous() for c in outs),
+                                      slab_starts[a:b], int(b - a), core_n)
+                    continue
+                for i, s in enumerate(batch):
+                    paste(outs[0][i], outs[1][i], outs[2][i], s)
+            if average:
+                for s in empty_starts:
+                    paste(z[0], z[1], z[2], s)
+            if dump_dir is not None and writes and len(empty_starts):
+                # identical (all-zero) inputs give identical outputs
+                zb, zca, zaa = (v.cpu().numpy() for v in z)
+                for s in empty_starts:
+                    _dump_window(dump_dir, dump_reference, zb, zca, zaa, s, core_n, shape)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        self.timing["inference"] = inference.seconds
         self.timing["n_windows"] = int(len(starts))
         self.timing["n_forwards"] = self.n_forwards - forwards0
 
-        t2 = time.time()
-        if average:
-            safe = torch.clamp(cnt_v, min=1.0)
-            bb_v, ca_v, aa_v = bb_v / safe, ca_v / safe, aa_v / safe[..., None]
-            sl = tuple(slice(halo, halo + s) for s in shape)
-        else:
-            sl = tuple(slice(0, s) for s in shape)
-        if self.shard_volumes:
-            out = self._gather_slabs((bb_v, ca_v, aa_v), shape, x0, keep_on_device)
-            self.timing["reconstruction"] = time.time() - t2
-            return out
-        aa_c = aa_v[sl]
-        out = {
-            "backbone_probability": bb_v[sl],
-            "carbon_alpha_probability": ca_v[sl],
-            "amino_acid_probability": torch.movedim(aa_c, -1, 0),
-            "amino_acid_prediction": torch.argmax(aa_c, dim=-1),
-        }
-        if keep_on_device:
-            out = {k: v.contiguous() for k, v in out.items()}
-        else:
-            out = {k: v.cpu().numpy() for k, v in out.items()}
-        self.timing["reconstruction"] = time.time() - t2
+        with span("engine.reconstruction") as reconstruction:
+            if average:
+                safe = torch.clamp(cnt_v, min=1.0)
+                bb_v, ca_v, aa_v = bb_v / safe, ca_v / safe, aa_v / safe[..., None]
+                sl = tuple(slice(halo, halo + s) for s in shape)
+            else:
+                sl = tuple(slice(0, s) for s in shape)
+            if self.shard_volumes:
+                out = self._gather_slabs((bb_v, ca_v, aa_v), shape, x0, keep_on_device)
+            else:
+                aa_c = aa_v[sl]
+                out = {
+                    "backbone_probability": bb_v[sl],
+                    "carbon_alpha_probability": ca_v[sl],
+                    "amino_acid_probability": torch.movedim(aa_c, -1, 0),
+                    "amino_acid_prediction": torch.argmax(aa_c, dim=-1),
+                }
+                if keep_on_device:
+                    out = {k: v.contiguous() for k, v in out.items()}
+                else:
+                    with span("engine.d2h"):
+                        out = {k: _to_host(v) for k, v in out.items()}
+        self.timing["reconstruction"] = reconstruction.seconds
         return out
 
     def _gather_slabs(self, slabs, shape, x0: int, keep_on_device: bool) -> Dict:
@@ -504,12 +519,13 @@ class SlidingWindowPredictor:
                     "x_offset": x0}
         host = [np.empty((mesh.size * x_local,) + tuple(v.shape[1:]), np.float32)
                 for v in slabs]
-        for r in range(mesh.size):
-            bufs = list(slabs) if r == mesh.rank else [torch.empty_like(v) for v in slabs]
-            if self._exchanges:
-                distributed.broadcast_(bufs, src=r)
-            for h, b in zip(host, bufs):
-                h[r * x_local:(r + 1) * x_local] = b.cpu().numpy()
+        with span("engine.d2h"):
+            for r in range(mesh.size):
+                bufs = list(slabs) if r == mesh.rank else [torch.empty_like(v) for v in slabs]
+                if self._exchanges:
+                    distributed.broadcast_(bufs, src=r)
+                for h, b in zip(host, bufs):
+                    h[r * x_local:(r + 1) * x_local] = _to_host(b)
         sl = tuple(slice(0, s) for s in shape)
         aa = np.moveaxis(host[2][sl], -1, 0)
         return {"backbone_probability": host[0][sl],

@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -23,6 +22,7 @@ from ..io import pdb as pdb_io
 from ..ops.normalize import normalize_map
 from ..ops.rasterize import rasterize_af3_encoding, voxel_to_world
 from ..ops.resample import resample_to_voxel_size
+from ..utils.spans import count, span
 from .engine import SlidingWindowPredictor, auto_batch_size, best_core
 
 logger = logging.getLogger(__name__)
@@ -45,15 +45,17 @@ class PreparedMap:
 def prepare_map(map_path: str, target_voxel_size: float = 1.0,
                 device=None) -> PreparedMap:
     """Read an MRC map, resample to ``target_voxel_size`` Å and normalize."""
-    t0 = time.time()
-    dev = resolve_device(device)
-    vol = mrc_io.read_mrc(map_path)
-    xyz, offset = vol.to_xyz()
-    x = torch.from_numpy(np.ascontiguousarray(xyz, np.float32)).to(dev)
-    resampled = resample_to_voxel_size(x, vol.voxel_size, target_voxel_size)
-    normalized = normalize_map(resampled).cpu().numpy()
+    with span("pipeline.prepare") as sp:
+        dev = resolve_device(device)
+        vol = mrc_io.read_mrc(map_path)
+        xyz, offset = vol.to_xyz()
+        x = torch.from_numpy(np.ascontiguousarray(xyz, np.float32)).to(dev)
+        count("h2d_bytes", x.nbytes)
+        resampled = resample_to_voxel_size(x, vol.voxel_size, target_voxel_size)
+        normalized = normalize_map(resampled).cpu().numpy()
+        count("d2h_bytes", normalized.nbytes)
     logger.info("prepared map %s: %s -> %s @ %.2f A in %.2fs", Path(map_path).name,
-                xyz.shape, normalized.shape, target_voxel_size, time.time() - t0)
+                xyz.shape, normalized.shape, target_voxel_size, sp.seconds)
     return PreparedMap(
         volume=normalized,
         offset=np.asarray(offset, np.float64),
@@ -66,10 +68,11 @@ def prepare_map(map_path: str, target_voxel_size: float = 1.0,
 def build_af3_encoding(prepared: PreparedMap, docked_pdb_path: str,
                        mode: str = "nearest") -> np.ndarray:
     """Rasterize the combined docked AF3 model onto the prepared map grid."""
-    atoms = pdb_io.parse_pdb(docked_pdb_path)
-    return rasterize_af3_encoding(atoms, prepared.volume.shape, origin=prepared.origin,
-                                  voxel_size=prepared.voxel_size, nstart=prepared.offset,
-                                  mode=mode)
+    with span("pipeline.rasterize"):
+        atoms = pdb_io.parse_pdb(docked_pdb_path)
+        return rasterize_af3_encoding(atoms, prepared.volume.shape, origin=prepared.origin,
+                                      voxel_size=prepared.voxel_size, nstart=prepared.offset,
+                                      mode=mode)
 
 
 def predict_map(
@@ -98,32 +101,33 @@ def predict_map(
     data-parallel world the predictor splits each batch over
     (``parallel.mesh``); every rank calls this together and gets the same
     volumes."""
-    if predictor is not None:
-        device = predictor.device
-    elif device is None and mesh is not None:
-        device = mesh.device
-    dev = resolve_device(device)
-    prepared = prepare_map(map_path, device=dev)
-    if predictor is not None:
-        core, halo, batch_size = predictor.core, predictor.halo, predictor.batch_size
-    else:
-        batch_size = batch_size or auto_batch_size(device=dev)
-        if core == 0:
-            core, batch_size = best_core(prepared.volume.shape, halo, max_batch=batch_size)
-    encoding = None
-    if docked_pdb_path is not None:
-        if not Path(docked_pdb_path).exists():
-            raise FileNotFoundError(f"docked AF3 model not found: {docked_pdb_path}")
-        encoding = build_af3_encoding(prepared, docked_pdb_path)
+    with span("pipeline.predict_map"):
+        if predictor is not None:
+            device = predictor.device
+        elif device is None and mesh is not None:
+            device = mesh.device
+        dev = resolve_device(device)
+        prepared = prepare_map(map_path, device=dev)
+        if predictor is not None:
+            core, halo, batch_size = predictor.core, predictor.halo, predictor.batch_size
+        else:
+            batch_size = batch_size or auto_batch_size(device=dev)
+            if core == 0:
+                core, batch_size = best_core(prepared.volume.shape, halo, max_batch=batch_size)
+        encoding = None
+        if docked_pdb_path is not None:
+            if not Path(docked_pdb_path).exists():
+                raise FileNotFoundError(f"docked AF3 model not found: {docked_pdb_path}")
+            encoding = build_af3_encoding(prepared, docked_pdb_path)
 
-    if predictor is None:
-        predictor = SlidingWindowPredictor(
-            params, batch_size=batch_size,
-            dtype=dtype if dtype is not None else torch.bfloat16,
-            base_filters=base_filters, core=core, halo=halo, device=dev, mesh=mesh)
-    out = predictor.predict_volume(prepared.volume, encoding, dump_windows_dir=dump_windows_dir,
-                                   dump_format=dump_format)
-    out["prepared_map"] = prepared
-    out["predictor"] = predictor
-    out["timing"] = dict(predictor.timing)
-    return out
+        if predictor is None:
+            predictor = SlidingWindowPredictor(
+                params, batch_size=batch_size,
+                dtype=dtype if dtype is not None else torch.bfloat16,
+                base_filters=base_filters, core=core, halo=halo, device=dev, mesh=mesh)
+        out = predictor.predict_volume(prepared.volume, encoding,
+                                       dump_windows_dir=dump_windows_dir, dump_format=dump_format)
+        out["prepared_map"] = prepared
+        out["predictor"] = predictor
+        out["timing"] = dict(predictor.timing)
+        return out

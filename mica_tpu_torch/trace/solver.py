@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -35,6 +34,7 @@ import torch
 
 from ..io import fasta as fasta_io
 from ..io import pdb as pdb_io
+from ..utils.spans import span
 from .af3_align import AF3Aligner
 from .align import TemplateFreeAligner
 from .assemble import Assembler
@@ -172,9 +172,9 @@ class Solver:
         return "success"
 
     def _timed(self, name, fn):
-        t0 = time.time()
-        out = fn()
-        self.time_cost[name] = time.time() - t0
+        with span(f"solver.{name}") as sp:
+            out = fn()
+        self.time_cost[name] = sp.seconds
         logger.info("%s completed in %.2fs", name, self.time_cost[name])
         return out
 
@@ -228,53 +228,53 @@ class Solver:
         from ..infer.engine import SlidingWindowPredictor, auto_batch_size, best_core
         from ..infer.pipeline import build_af3_encoding, prepare_map
 
-        t0 = time.time()
-        self.prepared = prepare_map(self.config.map_path, device=self.config.device)
-        encoding = None
-        docked = self.config.docked_model_path
-        if Path(docked).exists():
-            encoding = build_af3_encoding(self.prepared, docked)
-        self.time_cost["getData"] = time.time() - t0
+        with span("solver.getData") as sp:
+            self.prepared = prepare_map(self.config.map_path, device=self.config.device)
+            encoding = None
+            docked = self.config.docked_model_path
+            if Path(docked).exists():
+                encoding = build_af3_encoding(self.prepared, docked)
+        self.time_cost["getData"] = sp.seconds
 
-        t0 = time.time()
-        if self.params is None:
-            if not self.config.allow_random_weights:
-                raise RuntimeError(
-                    "no network checkpoint loaded (--model_path); refusing to "
-                    "produce a model from random weights. Pass "
-                    "--allow_random_weights to override (tests/smoke runs only)."
-                )
-            from ..models.mica import MICA
+        with span("solver.nnPred") as sp:
+            if self.params is None:
+                if not self.config.allow_random_weights:
+                    raise RuntimeError(
+                        "no network checkpoint loaded (--model_path); refusing to "
+                        "produce a model from random weights. Pass "
+                        "--allow_random_weights to override (tests/smoke runs only)."
+                    )
+                from ..models.mica import MICA
 
-            logger.warning("no network checkpoint loaded; using random weights")
-            self.params = MICA(base=self.config.base_filters).init_weights(
-                torch.Generator().manual_seed(self.config.seed))
+                logger.warning("no network checkpoint loaded; using random weights")
+                self.params = MICA(base=self.config.base_filters).init_weights(
+                    torch.Generator().manual_seed(self.config.seed))
 
-        core, halo = self.config.window_core, self.config.window_halo
-        batch = self.config.batch_size or auto_batch_size(device=self.config.device)
-        if core == 0:
-            core, batch = best_core(self.prepared.volume.shape, halo,
-                                    max_batch=batch)
-            logger.info("auto window geometry: core=%d (window=%d) batch=%d",
-                        core, core + 2 * halo, batch)
-        predictor = SlidingWindowPredictor(
-            self.params,
-            batch_size=batch,
-            dtype=self.config.dtype,
-            base_filters=self.config.base_filters,
-            core=core, halo=halo,
-            device=self.config.device,
-        )
-        out = predictor.predict_volume(
-            self.prepared.volume, encoding, keep_on_device=True
-        )
-        # every volume stays on the device: candidate extraction runs there
-        # (candidates_device.py) and only O(candidates) values reach the
-        # host; the CA volume is materialized lazily iff the AF3 aligner
-        # needs its pointwise integrals (align_af3)
-        self.volumes = dict(out)
-        self.predictor_timing = dict(predictor.timing)
-        self.time_cost["nnPred"] = time.time() - t0
+            core, halo = self.config.window_core, self.config.window_halo
+            batch = self.config.batch_size or auto_batch_size(device=self.config.device)
+            if core == 0:
+                core, batch = best_core(self.prepared.volume.shape, halo,
+                                        max_batch=batch)
+                logger.info("auto window geometry: core=%d (window=%d) batch=%d",
+                            core, core + 2 * halo, batch)
+            predictor = SlidingWindowPredictor(
+                self.params,
+                batch_size=batch,
+                dtype=self.config.dtype,
+                base_filters=self.config.base_filters,
+                core=core, halo=halo,
+                device=self.config.device,
+            )
+            out = predictor.predict_volume(
+                self.prepared.volume, encoding, keep_on_device=True
+            )
+            # every volume stays on the device: candidate extraction runs there
+            # (candidates_device.py) and only O(candidates) values reach the
+            # host; the CA volume is materialized lazily iff the AF3 aligner
+            # needs its pointwise integrals (align_af3)
+            self.volumes = dict(out)
+            self.predictor_timing = dict(predictor.timing)
+        self.time_cost["nnPred"] = sp.seconds
 
     def set_volumes(self, volumes: Dict, prepared=None) -> None:
         """Inject precomputed prediction volumes, numpy arrays or tensors

@@ -35,6 +35,7 @@ from ..io import pdb as pdb_io
 from ..ops import masks as mask_ops
 from ..ops.rasterize import CHANNEL_NAMES, rasterize_af3_encoding
 from ..ops.window import extract_windows
+from ..utils.spans import span
 
 Batch = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]
 
@@ -157,8 +158,10 @@ def batch_iterator(dataset, batch_size: int, indices: Optional[np.ndarray] = Non
     stop = len(idx) - (len(idx) % batch_size if drop_last else 0)
 
     def read(ix):
-        samples = [dataset[int(i)] for i in ix]
-        return tuple(np.stack([s[f] for s in samples]) for f in range(5))
+        # closed before the batch is yielded: a span does not cross a yield
+        with span("train.load"):
+            samples = [dataset[int(i)] for i in ix]
+            return tuple(np.stack([s[f] for s in samples]) for f in range(5))
 
     for ofs in range(0, stop, batch_size):
         ix = idx[ofs:ofs + batch_size]

@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
@@ -55,6 +54,7 @@ from ..device import resolve_device
 from ..models.mica import MICA, dropout_rate_for_epoch, exact_f32
 from ..parallel import distributed
 from ..parallel.mesh import make_mesh
+from ..utils.spans import count, span
 from . import augment
 from .data import RowShard
 from .loss import class_weight_denominators, multi_task_loss, task_lambdas
@@ -202,7 +202,10 @@ class Trainer:
             grad_count=torch.zeros((), dtype=torch.int64, device=self.device))
 
     def _to_device(self, batch) -> List[torch.Tensor]:
-        return [torch.as_tensor(b).to(self.device, non_blocking=True) for b in batch]
+        with span("train.to_device"):
+            host = [torch.as_tensor(b) for b in batch]
+            count("h2d_bytes", sum(t.nbytes for t in host))
+            return [t.to(self.device, non_blocking=True) for t in host]
 
     # ------------------------------------------------------------------
     def train_step(self, state: TrainState, batch, lambdas,
@@ -212,7 +215,7 @@ class Trainer:
         global batch, or under a process group this rank's ``RowShard`` of
         it.  Updates the model and ``state`` in place; returns the step's
         metrics as device tensors, the global batch's on every rank."""
-        with exact_f32(self.model.dtype):
+        with span("train.step"), exact_f32(self.model.dtype):
             return self._train_step(state, batch, lambdas, dropout_rate)
 
     def _train_step(self, state: TrainState, batch, lambdas,
@@ -289,14 +292,14 @@ class Trainer:
         self.model.train()
         totals: Dict[str, torch.Tensor] = {}
         n = 0
-        t0 = time.time()
-        for batch in loader:
-            metrics = self.train_step(state, batch, lambdas, rate)
-            n += 1
-            for k in _EPOCH_KEYS:
-                totals[k] = totals[k] + metrics[k] if k in totals else metrics[k]
-        out = {k: float(v) / max(n, 1) for k, v in totals.items()}
-        out["epoch_time"] = time.time() - t0
+        with span("train.epoch") as epoch_span:
+            for batch in loader:
+                metrics = self.train_step(state, batch, lambdas, rate)
+                n += 1
+                for k in _EPOCH_KEYS:
+                    totals[k] = totals[k] + metrics[k] if k in totals else metrics[k]
+            out = {k: float(v) / max(n, 1) for k, v in totals.items()}
+        out["epoch_time"] = epoch_span.seconds
         out["steps"] = n
         return state, out
 
