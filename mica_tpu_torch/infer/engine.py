@@ -284,7 +284,8 @@ class SlidingWindowPredictor:
                        dump_windows_dir: Optional[str] = None,
                        dump_format: str = "compact") -> Dict:
         """Predict BB/CA/AA volumes for a normalized ``volume[x, y, z]``;
-        ``af_encoding`` is (24, X, Y, Z) or None.  Returns
+        ``af_encoding`` is (24, X, Y, Z), its (X, Y, Z) uint32 bitfield
+        (``pack_af_encoding``'s words) or None.  Returns
         ``backbone_probability``, ``carbon_alpha_probability`` (X,Y,Z),
         ``amino_acid_probability`` (20,X,Y,Z) and ``amino_acid_prediction``
         (X,Y,Z; argmax 0..19) as numpy arrays, or with ``keep_on_device``
@@ -330,6 +331,7 @@ class SlidingWindowPredictor:
                 with span("engine.pack"):
                     if af_encoding.ndim == 3 and af_encoding.dtype == np.uint32:
                         packed = af_encoding
+                        count("af_prepacked", 1)
                     else:
                         af_arr = np.asarray(af_encoding)
                         if af_arr.dtype.kind in "iub":
@@ -338,6 +340,7 @@ class SlidingWindowPredictor:
                             binary = bool(((af_arr == 0) | (af_arr == 1)).all())
                         if binary:
                             packed = pack_af_encoding(af_arr)
+                            count("af_repacked", 1)
                         else:
                             # fractional encodings cannot be bit-packed
                             packed = np.moveaxis(af_arr.astype(np.float32), 0, -1)

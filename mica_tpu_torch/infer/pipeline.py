@@ -2,7 +2,8 @@
 
 Port of ``mica_tpu/infer/pipeline.py``: read the density map, resample to
 1 Å, normalize to [0, 1], rasterize the docked AF3 structure into the
-24-channel encoding, run the sliding-window predictor, and return the four
+24-channel encoding (on the predict path straight into the engine's
+bit-packed words), run the sliding-window predictor, and return the four
 prediction volumes.  Resample and normalize run on ``device``.
 """
 
@@ -20,7 +21,7 @@ from ..device import resolve_device
 from ..io import mrc as mrc_io
 from ..io import pdb as pdb_io
 from ..ops.normalize import normalize_map
-from ..ops.rasterize import rasterize_af3_encoding, voxel_to_world
+from ..ops.rasterize import rasterize_af3_bits, rasterize_af3_encoding, voxel_to_world
 from ..ops.resample import resample_to_voxel_size
 from ..utils.spans import count, span
 from .engine import SlidingWindowPredictor, auto_batch_size, best_core
@@ -75,6 +76,15 @@ def build_af3_encoding(prepared: PreparedMap, docked_pdb_path: str,
                                       mode=mode)
 
 
+def build_af3_bits(prepared: PreparedMap, docked_pdb_path: str) -> np.ndarray:
+    """``build_af3_encoding``'s nearest splat as the engine's (X, Y, Z)
+    uint32 bitfield, bit ``c`` for channel ``c``."""
+    with span("pipeline.rasterize"):
+        atoms = pdb_io.parse_pdb(docked_pdb_path)
+        return rasterize_af3_bits(atoms, prepared.volume.shape, origin=prepared.origin,
+                                  voxel_size=prepared.voxel_size, nstart=prepared.offset)
+
+
 def predict_map(
     map_path: str,
     params,
@@ -118,7 +128,7 @@ def predict_map(
         if docked_pdb_path is not None:
             if not Path(docked_pdb_path).exists():
                 raise FileNotFoundError(f"docked AF3 model not found: {docked_pdb_path}")
-            encoding = build_af3_encoding(prepared, docked_pdb_path)
+            encoding = build_af3_bits(prepared, docked_pdb_path)
 
         if predictor is None:
             predictor = SlidingWindowPredictor(

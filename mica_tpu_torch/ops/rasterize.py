@@ -6,7 +6,9 @@ Re-implements the reference's AF3 feature encoding
 (preprocessing.py:253-298): channel layout ``[CA, N, C, O] + 20 amino-acid
 types``, one binary volume per channel, nearest-voxel splat of every atom of
 the combined docked AF3 structure.  Output is channels-first over the
-canonical XYZ volume layout: ``(24, X, Y, Z)``.
+canonical XYZ volume layout: ``(24, X, Y, Z)``.  ``rasterize_af3_bits``
+writes the same splat straight into the engine's ``(X, Y, Z)`` uint32
+bitfield, bit ``c`` for channel ``c``, without the 24-channel volume.
 
 Coordinate convention: ``index = (coord - origin) / voxel - nstart`` — the
 full CCP4 convention.  (The reference subtracts only the origin when
@@ -70,6 +72,44 @@ def voxel_to_world(
     ) + np.asarray(origin, np.float64)
 
 
+def _nearest_splat(
+    atoms: np.ndarray,
+    shape: Tuple[int, int, int],
+    origin: Sequence[float],
+    voxel_size: float,
+    nstart: Sequence[float],
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The nearest splat's writes: (channel, (x, y, z)) index arrays, one
+    entry per atom and channel it sets (its backbone channel, then its
+    residue type's), at its nearest voxel clipped into ``shape``."""
+    coords = np.stack([atoms["x"], atoms["y"], atoms["z"]], axis=-1)
+    idx = np.rint(world_to_voxel(coords, origin, voxel_size, nstart)).astype(np.int64)
+    for a in range(3):
+        idx[:, a] = np.clip(idx[:, a], 0, shape[a] - 1)
+    ch = np.concatenate(atoms_to_channel_indices(atoms))
+    idx = np.concatenate([idx, idx])
+    m = ch >= 0
+    return ch[m], idx[m]
+
+
+def rasterize_af3_bits(
+    atoms: np.ndarray,
+    shape: Tuple[int, int, int],
+    origin: Sequence[float] = (0.0, 0.0, 0.0),
+    voxel_size: float = 1.0,
+    nstart: Sequence[float] = (0.0, 0.0, 0.0),
+) -> np.ndarray:
+    """The nearest splat as an (X, Y, Z) uint32 bitfield: bit ``c`` is set
+    where channel ``c`` of ``rasterize_af3_encoding(..., mode="nearest")``
+    is 1, the words ``infer.engine.pack_af_encoding`` makes of it."""
+    bits = np.zeros(tuple(shape), np.uint32)
+    ch, idx = _nearest_splat(atoms, shape, origin, voxel_size, nstart)
+    flat = np.ravel_multi_index(tuple(idx.T), bits.shape)
+    # .at: several atoms may set bits of one voxel
+    np.bitwise_or.at(bits.reshape(-1), flat, np.uint32(1) << ch.astype(np.uint32))
+    return bits
+
+
 def rasterize_af3_encoding(
     atoms: np.ndarray,
     shape: Tuple[int, int, int],
@@ -91,18 +131,13 @@ def rasterize_af3_encoding(
 
     # the reference iterates residues with a blank hetero flag; parse_pdb
     # already excludes HETATM records by default, so rasterize every atom.
-    coords = np.stack([atoms["x"], atoms["y"], atoms["z"]], axis=-1)
-    idx_f = world_to_voxel(coords, origin, voxel_size, nstart)
-    bb_ch, aa_ch = atoms_to_channel_indices(atoms)
-
     if mode == "nearest":
-        idx = np.rint(idx_f).astype(np.int64)
-        for a in range(3):
-            idx[:, a] = np.clip(idx[:, a], 0, shape[a] - 1)
-        for ch_arr in (bb_ch, aa_ch):
-            m = ch_arr >= 0
-            vol[ch_arr[m], idx[m, 0], idx[m, 1], idx[m, 2]] = 1.0
+        ch, idx = _nearest_splat(atoms, shape, origin, voxel_size, nstart)
+        vol[ch, idx[:, 0], idx[:, 1], idx[:, 2]] = 1.0
     elif mode == "trilinear":
+        coords = np.stack([atoms["x"], atoms["y"], atoms["z"]], axis=-1)
+        idx_f = world_to_voxel(coords, origin, voxel_size, nstart)
+        bb_ch, aa_ch = atoms_to_channel_indices(atoms)
         base = np.floor(idx_f).astype(np.int64)
         frac = idx_f - base
         for corner in range(8):

@@ -226,14 +226,14 @@ class Solver:
         """Map preprocessing and network prediction; the volumes stay on
         the predictor's device."""
         from ..infer.engine import SlidingWindowPredictor, auto_batch_size, best_core
-        from ..infer.pipeline import build_af3_encoding, prepare_map
+        from ..infer.pipeline import build_af3_bits, prepare_map
 
         with span("solver.getData") as sp:
             self.prepared = prepare_map(self.config.map_path, device=self.config.device)
             encoding = None
             docked = self.config.docked_model_path
             if Path(docked).exists():
-                encoding = build_af3_encoding(self.prepared, docked)
+                encoding = build_af3_bits(self.prepared, docked)
         self.time_cost["getData"] = sp.seconds
 
         with span("solver.nnPred") as sp:

@@ -12,7 +12,9 @@ profiler a span costs one object, two clock reads and one flag check, and
 ``count`` returns at once: nothing is opened or kept.
 
 Names are ``<layer>.<stage>`` (``engine.h2d``); counters are bytes handed
-across (``h2d_bytes``, ``d2h_bytes``).  The stack of open spans is a
+across (``h2d_bytes``, ``d2h_bytes``) or counts of a path taken
+(``af_prepacked``, ``af_repacked``: whether ``engine.pack`` was handed the
+AF3 encoding's bitfield or packed it itself).  The stack of open spans is a
 thread's own; the records are the process's.
 """
 

@@ -2,7 +2,8 @@
 
 resample and normalize: f32 on both sides, atol 1e-6 (same arithmetic,
 other summation order in the spline's causal init).  predict_map: f32
-network, atol 1e-4 on the probabilities.
+network, atol 1e-4 on the probabilities, with and without a docked AF3
+model.
 """
 
 import jax.numpy as jnp
@@ -16,7 +17,7 @@ from mica_tpu.models.mica import MICA as JaxMICA
 from mica_tpu.ops import normalize as jnormalize
 from mica_tpu.ops import resample as jresample
 from mica_tpu_torch.infer import pipeline
-from mica_tpu_torch.io import mrc
+from mica_tpu_torch.io import mrc, pdb
 from mica_tpu_torch.ops import normalize, resample
 
 BASE = 16
@@ -57,9 +58,23 @@ def params():
         seed=9)
 
 
-def test_predict_map_matches_jax(tmp_path, params):
+def _write_docked(path, n=40):
+    """A CA model of ``n`` residues of mixed types inside ``_write_map``'s
+    box (some atoms share a voxel)."""
+    rng = np.random.default_rng(11)
+    ca = rng.uniform(4.0, 22.0, (n, 3))
+    ca[1::7] = ca[::7][: len(ca[1::7])] + 0.2
+    types = rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), n)
+    pdb.write_ca_pdb(path, [ca], res_names_by_chain=[list(types)])
+    return path
+
+
+@pytest.mark.parametrize("docked", [False, True])
+def test_predict_map_matches_jax(tmp_path, params, docked):
     path = str(_write_map(tmp_path / "m.mrc"))
     kw = dict(batch_size=2, base_filters=BASE, core=12, halo=2)
+    if docked:
+        kw["docked_pdb_path"] = str(_write_docked(tmp_path / "docked.pdb"))
     want = jpipeline.predict_map(path, params, dtype=jnp.float32, **kw)
     got = pipeline.predict_map(path, params, dtype=torch.float32, device="cpu", **kw)
     np.testing.assert_allclose(got["prepared_map"].volume, want["prepared_map"].volume,
@@ -69,6 +84,8 @@ def test_predict_map_matches_jax(tmp_path, params):
               "amino_acid_probability"):
         np.testing.assert_allclose(got[k], want[k], atol=1e-4)
     assert set(got["timing"]) >= {"setup", "inference", "reconstruction", "n_windows"}
+    if docked:
+        assert pipeline.build_af3_bits(got["prepared_map"], kw["docked_pdb_path"]).any()
 
 
 def test_cli_writes_volumes(tmp_path):

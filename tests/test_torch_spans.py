@@ -12,7 +12,9 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from mica_tpu_torch.infer.engine import SlidingWindowPredictor
+from mica_tpu_torch.infer import pipeline
+from mica_tpu_torch.infer.engine import SlidingWindowPredictor, pack_af_encoding
+from mica_tpu_torch.io import mrc, pdb
 from mica_tpu_torch.models.mica import MICA
 from mica_tpu_torch.train import data
 from mica_tpu_torch.train.loss import task_lambdas
@@ -116,6 +118,34 @@ def test_engine_span_tree_counts_and_timing():
     setup = got["engine.setup"][0]
     assert setup.child_ns == sum(r.end_ns - r.start_ns for k in ("pad", "pack", "h2d", "occupancy")
                                  for r in got[f"engine.{k}"])
+
+
+def _docked_map(tmp_path):
+    """A map file and a docked CA model inside its box."""
+    vol, _ = _volume()
+    mrc.write_mrc(tmp_path / "m.mrc", np.transpose(vol, (2, 1, 0)), voxel_size=1.0)
+    ca = np.random.default_rng(4).uniform(3.0, 12.0, (12, 3))
+    pdb.write_ca_pdb(tmp_path / "docked.pdb", [ca], res_names_by_chain=[list("MKTAYIAKQRQI")])
+    return str(tmp_path / "m.mrc"), str(tmp_path / "docked.pdb")
+
+
+@pytest.mark.parametrize("fed", ["bits", "encoding", "predict_map"])
+def test_engine_pack_counts_the_path_taken(tmp_path, fed):
+    """``engine.pack`` counts ``af_prepacked`` when handed the bitfield and
+    ``af_repacked`` when it checks and packs a (24, X, Y, Z) encoding."""
+    model = MICA(base=BASE).init_weights(torch.Generator().manual_seed(3))
+    pred = SlidingWindowPredictor(model, batch_size=2, dtype=torch.float32, base_filters=BASE,
+                                  core=CORE, halo=HALO, device="cpu")
+    vol, af = _volume()
+    with torch.no_grad(), _profiled():
+        if fed == "predict_map":
+            map_path, docked = _docked_map(tmp_path)
+            pipeline.predict_map(map_path, None, docked, predictor=pred)
+        else:
+            pred.predict_volume(vol, pack_af_encoding(af) if fed == "bits" else af)
+    (pack,) = _by_name()["engine.pack"]
+    want = "af_repacked" if fed == "encoding" else "af_prepacked"
+    assert {k: v for k, v in pack.counters.items() if k.startswith("af_")} == {want: 1}
 
 
 def test_trainer_step_records_load_and_copy():
