@@ -43,7 +43,7 @@ from __future__ import annotations
 
 from collections.abc import Mapping
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -171,11 +171,26 @@ def _dump_window(dump_dir: Path, reference: bool, bb: np.ndarray, ca: np.ndarray
         np.savez(dump_dir / f"{stem}_{key}.npz", data=data, metadata=meta)
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """``t`` copied to the host, its bytes counted."""
-    a = t.cpu().numpy()
-    count("d2h_bytes", a.nbytes)
-    return a
+def _to_host(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """Tensors of one device on the host as numpy arrays, their bytes
+    counted.  From a card each lands, in C order, in page-locked memory
+    from torch's caching host allocator: made contiguous on the card one
+    at a time (at most one device temporary alive), its copy enqueued on
+    the current stream, and one synchronize after the last.  A pinned
+    block goes back to the cache once every array on it is dropped, so the
+    next call's volumes reuse it; arrays that are kept stay pinned."""
+    if tensors[0].device.type != "cuda":
+        out = [t.cpu().numpy() for t in tensors]
+    else:
+        pinned = []
+        for t in tensors:
+            a = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            a.copy_(t.contiguous(), non_blocking=True)
+            pinned.append(a)
+        torch.cuda.current_stream(tensors[0].device).synchronize()
+        out = [a.numpy() for a in pinned]
+    count("d2h_bytes", sum(a.nbytes for a in out))
+    return out
 
 
 def _as_state_dict(params) -> Mapping:
@@ -290,7 +305,12 @@ class SlidingWindowPredictor:
         ``amino_acid_probability`` (20,X,Y,Z) and ``amino_acid_prediction``
         (X,Y,Z; argmax 0..19) as numpy arrays, or with ``keep_on_device``
         as tensors on the predictor's device (nothing is copied to the
-        host; candidate extraction reads them there).  Under a mesh every
+        host; candidate extraction reads them there).  From a card the
+        numpy volumes are C-ordered and live in page-locked host memory
+        from torch's caching host allocator, which a later call reuses once
+        they are dropped; volumes the caller holds stay pinned, so a caller
+        that keeps several maps' volumes keeps that many blocks pinned
+        (each rounded up to a power of two bytes).  Under a mesh every
         rank calls this together and gets the same volumes; with
         ``shard_volumes`` the numpy volumes are gathered slab by slab
         through the host, and ``keep_on_device`` returns this rank's slab
@@ -502,7 +522,7 @@ class SlidingWindowPredictor:
                     out = {k: v.contiguous() for k, v in out.items()}
                 else:
                     with span("engine.d2h"):
-                        out = {k: _to_host(v) for k, v in out.items()}
+                        out = dict(zip(out, _to_host(list(out.values()))))
         self.timing["reconstruction"] = reconstruction.seconds
         return out
 
@@ -527,8 +547,8 @@ class SlidingWindowPredictor:
                 bufs = list(slabs) if r == mesh.rank else [torch.empty_like(v) for v in slabs]
                 if self._exchanges:
                     distributed.broadcast_(bufs, src=r)
-                for h, b in zip(host, bufs):
-                    h[r * x_local:(r + 1) * x_local] = _to_host(b)
+                for h, b in zip(host, _to_host(bufs)):
+                    h[r * x_local:(r + 1) * x_local] = b
         sl = tuple(slice(0, s) for s in shape)
         aa = np.moveaxis(host[2][sl], -1, 0)
         return {"backbone_probability": host[0][sl],

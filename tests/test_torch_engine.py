@@ -4,19 +4,33 @@ A small window geometry (core 12, halo 2) keeps the CPU time low; the
 engine code is the same at 48/8.  The volume has empty regions, so the
 zero-window tiling and the nonempty-window dedup both run.  Tolerance
 atol 1e-4 on the probabilities (f32 convs in another summation order).
+
+The ``cuda`` tests hold the copy of the output volumes to the host on the
+card: exact, into reused page-locked memory.  A machine with a card and
+without JAX runs them alone with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_engine.py
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
-from mica_tpu.infer import engine as jengine
-from mica_tpu.models.init import init_params_fast
-from mica_tpu.models.mica import MICA as JaxMICA
-from mica_tpu.ops import window as jwindow
 from mica_tpu_torch.infer import engine
+from mica_tpu_torch.models.mica import MICA
 from mica_tpu_torch.ops import window
+from mica_tpu_torch.utils import spans
+
+try:  # the reference; absent where only the cuda tests run
+    import jax.numpy as jnp
+
+    from mica_tpu.infer import engine as jengine
+    from mica_tpu.models.init import init_params_fast
+    from mica_tpu.models.mica import MICA as JaxMICA
+    from mica_tpu.ops import window as jwindow
+except ImportError:
+    pass
 
 BASE, CORE, HALO = 16, 12, 2
 KEYS = ("backbone_probability", "carbon_alpha_probability", "amino_acid_probability")
@@ -74,7 +88,6 @@ def test_cli_window_difference_is_the_reductions_rounding(params, monkeypatch):
 
     from mica_tpu.models import mica as jmica
     from mica_tpu_torch.models.convert import state_dict_from_jax_params
-    from mica_tpu_torch.models.mica import MICA
     from mica_tpu_torch.utils.synthetic import make_scenario
 
     _, _, vols = make_scenario(n_res=24, shape=(36, 36, 36), seed=3)
@@ -196,3 +209,59 @@ def test_core_blend_moves_windows_through_the_copy_functions(params, monkeypatch
                                         blend="average", device="cpu")
     avg.predict_volume(vol, af)
     assert calls["gather"] == batches
+
+
+def test_host_volumes_keep_their_shapes_dtypes_layout_and_byte_count():
+    """On the CPU nothing is copied: the float volumes stay views of the
+    engine's padded volumes, the argmax is its own C-ordered array, and
+    ``engine.d2h`` counts the bytes returned."""
+    vol, _ = _volume()
+    model = MICA(base=BASE, dtype=torch.float32).init_weights(torch.Generator().manual_seed(3))
+    pred = engine.SlidingWindowPredictor(model, batch_size=2, dtype=torch.float32,
+                                         base_filters=BASE, core=CORE, halo=HALO, device="cpu")
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = pred.predict_volume(vol)
+    counted = spans.counter("d2h_bytes")
+    spans.clear()
+    want = {"backbone_probability": (vol.shape, np.float32, False),
+            "carbon_alpha_probability": (vol.shape, np.float32, False),
+            "amino_acid_probability": ((20,) + vol.shape, np.float32, False),
+            "amino_acid_prediction": (vol.shape, np.int64, True)}
+    assert {k: (v.shape, v.dtype, v.flags.c_contiguous) for k, v in out.items()} == want
+    assert counted == sum(v.nbytes for v in out.values())
+
+
+def _card_views():
+    """Non-dense views of padded volumes on the card, as the engine hands
+    them to the host: a slice, the moved amino-acid axis, the argmax."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bb = torch.rand((40, 36, 32), device="cuda", generator=g)
+    aa = torch.rand((40, 36, 32, 20), device="cuda", generator=g)
+    sl = (slice(0, 30), slice(0, 26), slice(0, 20))
+    return [bb[sl], torch.movedim(aa[sl], -1, 0), torch.argmax(aa[sl], dim=-1)]
+
+
+@pytest.mark.cuda
+def test_volumes_from_the_card_land_exact_in_pinned_memory():
+    views = _card_views()
+    want = [v.cpu().numpy() for v in views]
+    for a, w in zip(engine._to_host(views), want):
+        assert (a.shape, a.dtype, a.flags.c_contiguous) == (w.shape, w.dtype, True)
+        assert a.tobytes() == np.ascontiguousarray(w).tobytes()
+        assert torch.from_numpy(a).is_pinned()
+
+
+@pytest.mark.cuda
+def test_a_second_copy_from_the_card_reuses_the_pinned_blocks():
+    views = _card_views()
+    stats = getattr(torch.cuda.memory, "host_memory_stats", None)
+    if stats is None:
+        pytest.skip("this torch does not report its pinned allocations (host_memory_stats)")
+    engine._to_host(views)                 # dropped at once
+    before = stats()["num_host_alloc"]
+    got = engine._to_host(views)
+    assert stats()["num_host_alloc"] == before
+    assert all(torch.from_numpy(a).is_pinned() for a in got)
