@@ -24,7 +24,10 @@ Phases, each printing what it found; any failure ends the run non-zero:
      at batch 1, its second kernel (the statistics' fixed-order sum) held
      to the bit against its plain version and timed alone; K3 runs in the
      forward and in the dx form, on odd shapes too, with its share of the
-     bound and its tile plan;
+     bound and its tile plan; ``in_sums`` at each width of the forward's 19
+     sites and C 16 within 1e-5 of the magnitudes, to the bit from call to
+     call and from batch 8 to batch 1, with its plan, registers and the
+     sum over a forward;
      K7 (20 launches a site) on K3's odd shapes too, with its share of the
      bound (>= 50 % at each training site) and its tile plan, and two calls
      on the same inputs must agree to the bit; K4-K6 over 20 launches a
@@ -95,9 +98,9 @@ Phases, each printing what it found; any failure ends the run non-zero:
      ``k1_takes`` accepts the widths) and a falling loss, the weights kept
      by their validation Dice, their held-out backbone Dice against the
      initial weights' (gain >= 0.1), then on the last step's weights a profile
-     of one base-16 step, a base-16 forward's launches (K1/K2 5, K3 3, K8
-     1) within 0.1 of the f32 CPU, ``cli.predict`` on the exported
-     original-format ``.pth`` and on a one-epoch ``cli.train`` ``.pt``,
+     of one base-16 step, a base-16 forward's launches (K1 5, K2 14, K3 3,
+     K8 1, ``in_sums`` 19) within 0.1 of the f32 CPU, ``cli.predict`` on the
+     exported original-format ``.pth`` and on a one-epoch ``cli.train`` ``.pt``,
      and the synthetic demo's ``cli.run --run_pulchra`` on the learned
      weights: the CA and all-atom models, coverage of the true chain at
      or above ``DEMO_COVERAGE_FLOOR``;
@@ -410,6 +413,81 @@ def check_k2(torch, conv3d_in, g, detail):
               f"in-place {lib:.3f} ms, bound {bnd:.3f} ms ({by})", flush=True)
         del y, want, got
     detail["in_apply"] = rows
+    return rows
+
+
+def in_sums_sites(base: int) -> dict:
+    """{C: launches} of ``in_sums`` in one inference forward: the stem's
+    pool (2 base); per stage the SE pool, the DualAttention's norm and
+    pool; per head two norms (64, 32) and the calibration's pool (32)."""
+    sites = {2 * base: 1}
+    for i in range(3):
+        sites[base * 2 ** i] = sites.get(base * 2 ** i, 0) + 3
+    for c, n in ((64, 3), (32, 6)):
+        sites[c] = sites.get(c, 0) + n
+    return sites
+
+
+def in_relu_sites(base: int) -> dict:
+    """{C: launches} of K2 after ``in_sums`` in one inference forward: the
+    DualAttention's norm at each stage, the heads' two norms."""
+    sites = {32: 3, 64: 3}
+    for i in range(3):
+        sites[base * 2 ** i] = sites.get(base * 2 ** i, 0) + 1
+    return sites
+
+
+def check_in_sums(torch, conv3d_in, g, detail):
+    """``in_sums`` at each width of the forward's sites (and C 16, the
+    base-16 model's) at batch 8: against the plain version within 1e-5 of
+    the sum of the terms' magnitudes, equal to the bit from call to call,
+    and sample 0 at batch 1 equal to the bit to sample 0 at batch 8."""
+    from mica_tpu_torch.ops import _build
+
+    rows = []
+    for c in sorted({16} | set(in_sums_sites(BASE))):
+        x = torch.randn(BATCH, WIN, WIN, WIN, c, device="cuda", generator=g).to(torch.bfloat16)
+        got = conv3d_in.in_sums(x)
+        again = conv3d_in.in_sums(x)
+        one = conv3d_in.in_sums(x[:1].contiguous())
+        torch.cuda.synchronize()
+        want = conv3d_in.in_sums_plain(x)
+        mag = conv3d_in.in_sums_plain(x.abs())
+        err = (got - want).abs().max().item()
+        excess = ((got - want).abs() - 1e-5 * mag).max().item()
+        fail_if(not excess <= 1e-3, f"in_sums C={c}: err {err} beyond 1e-5 of the magnitudes")
+        fail_if(not torch.equal(got, again), f"in_sums C={c}: two calls differ")
+        fail_if(not torch.equal(got[:1], one), f"in_sums C={c}: batch 1 differs from batch 8")
+        bnd, by = bound_ms(3.0 * x.numel(), 2.0 * x.numel() + 8.0 * BATCH * c, PEAK_F32)
+        ms = cuda_ms(lambda: conv3d_in.in_sums(x), reps=20)
+        plain = cuda_ms(lambda: conv3d_in.in_sums_plain(x))
+
+        def lib_sums():
+            return torch.stack([
+                x.sum(dim=(1, 2, 3), dtype=torch.float32),
+                torch.linalg.vector_norm(x, dim=(1, 2, 3), dtype=torch.float32) ** 2], 1)
+
+        lib = cuda_ms(lib_sums)
+        rows.append(dict(site=f"C={c}", max_abs_err=err, ms=ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=bnd, bound_by=by, bound_share=bnd / ms))
+        p = conv3d_in.in_sums_plan(x.shape, _build.sm_count(x.device))
+        main, summed = next(v[:2] for k, v in conv3d_in.in_sums_kernels.items() if k[0] == p)
+        print(f"in_sums C={c}: max_abs_err {err:.3e} (tol 1e-5 of sum |x|, sum x^2), bitwise "
+              f"equal from call to call and batch 1 to batch 8; time {ms:.4f} ms "
+              f"({100 * bnd / ms:.1f} % of its bound), plain {plain:.3f} ms, torch.sum and "
+              f"vector_norm in f32 {lib:.3f} ms, bound {bnd:.4f} ms ({by}); plan tile "
+              f"{p.block_s} x {p.block_c}, chunk {p.chunk} voxels, grid {p.grid} = "
+              f"{p.programs} programs; in_stats_sum {main.n_regs} registers, {main.n_spills} "
+              f"spills, in_bwd_stats_sum {summed.n_regs} registers, {summed.n_spills} spills",
+              flush=True)
+        del x
+    sites = in_sums_sites(BASE)
+    by_site = {r["site"]: r for r in rows}
+    fwd = sum(by_site[f"C={c}"]["ms"] * n for c, n in sites.items())
+    bnd = sum(by_site[f"C={c}"]["bound_ms"] * n for c, n in sites.items())
+    print(f"in_sums, a forward's {sum(sites.values())} launches: {fwd:.4f} ms against a bound "
+          f"of {bnd:.4f} ms ({100 * bnd / fwd:.1f} %)", flush=True)
+    detail["in_sums"] = rows
     return rows
 
 
@@ -1201,8 +1279,8 @@ def main_path(torch, args, detail):
           f"(the process's first call: {cold_wps:.3f} windows/s, wall {cold_wall:.3f} s)",
           flush=True)
     print(f"timing {json.dumps(timing)}", flush=True)
-    print(f"launches {json.dumps(launches)} (K1/K2/K3/K8 13/12/3/1 per forward, K9/K10 1 per "
-          "computed batch)", flush=True)
+    print(f"launches {json.dumps(launches)} (K1/K2/K3/K8/in_sums 13/21/3/1/19 per forward, "
+          "K9/K10 1 per computed batch)", flush=True)
     print(f"volumes finite, bb/ca in [0, 1], aa sums to 1 within {aa_sum_err:.2e}; equal to "
           "the bit to the first call's", flush=True)
     detail["main_path"] = dict(timing=timing, launches=launches, windows_per_s=wps,
@@ -1213,15 +1291,18 @@ def main_path(torch, args, detail):
 
 def check_predict_launches(launches: dict, timing: dict) -> int:
     """The launch gate of one ``predict_volume`` run in core blend with a
-    packed AF encoding: K1/K2/K3/K8 13/12/3/1 per forward, K9 and K10 one
-    per computed batch (the all-zero window's forward needs neither), no
-    training kernel.  Returns the number of computed windows."""
+    packed AF encoding: K1/K2/K3/K8 13/21/3/1 per forward (K2 after 12 K1
+    sites and 9 ``in_sums`` ones), ``in_sums`` 19 (those 9 norms and 10
+    average pools), K9 and K10 one per computed batch (the all-zero
+    window's forward needs neither), no training kernel.  Returns the
+    number of computed windows."""
     fw = timing["n_forwards"]
     computed = timing["n_windows"] - timing["n_empty"]
     batches = -(-computed // BATCH)
     fail_if(fw != batches + 1, f"{fw} forwards for {batches} batches and the all-zero window")
-    want = {"conv3d_stats": 13 * fw, "in_apply": 12 * fw, "depthwise3": 3 * fw, "stem9": fw,
-            "gather_windows": batches, "scatter_cores": batches}
+    want = {"conv3d_stats": 13 * fw, "in_apply": 21 * fw, "in_sums": 19 * fw,
+            "depthwise3": 3 * fw, "stem9": fw, "gather_windows": batches,
+            "scatter_cores": batches}
     for k, v in launches.items():
         fail_if(v != want.get(k, 0), f"{k}: {v} launches for {fw} forwards and {batches} "
                                      f"batches, expected {want.get(k, 0)}")
@@ -1462,11 +1543,13 @@ def profile_forward(torch, model, seed, detail):
         torch.cuda.synchronize()
     per_kernel = _device_times(prof)
     busy = sum(per_kernel.values())
-    groups = {"conv3d_stats (K1)": "conv3d_stats_kernel", "in_apply (K2)": "in_apply_kernel",
-              "depthwise3 (K3)": "depthwise3_kernel", "stem9 (K8)": "stem9_kernel"}
+    groups = {"conv3d_stats (K1)": ("conv3d_stats_kernel",),
+              "in_apply (K2)": ("in_apply_kernel",),
+              "in_sums": ("in_stats_sum_kernel", "in_bwd_stats_sum_kernel"),
+              "depthwise3 (K3)": ("depthwise3_kernel",), "stem9 (K8)": ("stem9_kernel",)}
     shares = {}
-    for label, pat in groups.items():
-        shares[label] = sum(v for k, v in per_kernel.items() if pat in k)
+    for label, pats in groups.items():
+        shares[label] = sum(v for k, v in per_kernel.items() if any(p in k for p in pats))
     shares["other kernels"] = busy - sum(shares.values())
     print(f"profile of one forward (batch {BATCH}, {WIN}^3, AF on): device span {span:.3f} ms, "
           f"kernel time {busy:.3f} ms" + (f", idle share {1 - busy / span:.3f}" if busy else
@@ -1526,7 +1609,7 @@ def training_path(torch, args, detail):
     fail_if(not all(math.isfinite(v) for v in losses + norms), "training loss or norm not finite")
     for k, want in TRAIN_PER_STEP.items():
         fail_if(per_step[k] != want, f"{k}: {per_step[k]} launches per step, expected {want}")
-    for k in ("in_apply", "stem9", "gather_windows", "scatter_cores"):
+    for k in ("in_apply", "in_sums", "stem9", "gather_windows", "scatter_cores"):
         fail_if(counts[k] != 0, f"training launched the inference-only {k}")
     launches = {k: counts[k] for k in TRAIN_KERNELS}
 
@@ -1668,8 +1751,8 @@ def profile_train_step(torch, trainer, state, batch, detail, key="train_profile"
 
 
 F32_MAP, F32_CORE = 16, 16    # the f32 phase's map (voxels an axis) and window core
-F32_KERNELS = ("conv3d_stats", "in_apply", "in_apply_ad", "in_bwd_stats", "in_bwd_apply",
-               "depthwise3", "depthwise3_grads", "stem9")
+F32_KERNELS = ("conv3d_stats", "in_apply", "in_sums", "in_apply_ad", "in_bwd_stats",
+               "in_bwd_apply", "depthwise3", "depthwise3_grads", "stem9")
 
 
 def f32_path(torch, args, detail):
@@ -2209,7 +2292,8 @@ DEMO_COVERAGE_FLOOR = 0.9
 # training step (recomputation on) and an inference forward
 LEARNED_PER_STEP = {"conv3d_stats": 13, "in_apply_ad": 8, "in_bwd_stats": 5, "in_bwd_apply": 5,
                     "depthwise3": 9, "depthwise3_grads": 3}
-LEARNED_PER_FORWARD = {"conv3d_stats": 5, "in_apply": 5, "depthwise3": 3, "stem9": 1}
+LEARNED_PER_FORWARD = {"conv3d_stats": 5, "in_apply": 14, "in_sums": 19, "depthwise3": 3,
+                       "stem9": 1}
 
 
 def batching_ab(torch, fx, trainer, state, ds, batch_iterator, batch: int,
@@ -2316,7 +2400,7 @@ def learned_path(torch, args, detail):
         fail_if(not last < first, f"the loss did not fall: {first} -> {last}")
         for k, v in want.items():
             fail_if(per_step[k] != v, f"{k}: {per_step[k]} launches a step, expected {v}")
-        for k in ("in_apply", "stem9", "gather_windows", "scatter_cores"):
+        for k in ("in_apply", "in_sums", "stem9", "gather_windows", "scatter_cores"):
             fail_if(counts[k] != 0, f"training launched the inference-only {k}")
         print(f"  validation backbone Dice, mean of {LEARNED_VAL} 96^3 scenarios (seeds "
               f"{fx.VAL_SEED}-{fx.VAL_SEED + LEARNED_VAL - 1}), by step: "
@@ -2909,6 +2993,7 @@ def main() -> int:
     rows["conv3d_stats"] = check_k1(torch, F, conv3d_in, g, detail)
     check_k1_dx(torch, F, conv3d_in, g, detail)
     rows["in_apply"] = check_k2(torch, conv3d_in, g, detail)
+    rows["in_sums"] = check_in_sums(torch, conv3d_in, g, detail)
     rows["depthwise3"] = check_k3(torch, F, depthwise, g, detail)
     rows["in_apply_ad"] = check_k4(torch, conv3d_in, g, detail)
     rows["in_bwd_stats"], rows["in_bwd_apply"] = check_k5_k6(torch, conv3d_in, g, detail)
@@ -2978,7 +3063,7 @@ def main() -> int:
                     bound_by=bound_by, library_ms=tot("library_ms"))
 
     k1_sites = {f"{cis}->{co}": 1 for cis, co, _ in conv3d_in.k1_sites(BASE)}
-    k2_sites = {}
+    k2_sites = {f"C={c}": n for c, n in in_relu_sites(BASE).items()}
     for cis, co, st in conv3d_in.k1_sites(BASE):
         if st:
             k2_sites[f"C={co}"] = k2_sites.get(f"C={co}", 0) + 1
@@ -2988,6 +3073,10 @@ def main() -> int:
               "mica_tpu/ops/wino_pallas.py:309", pl, k1_sites),
         entry("in_apply", "triton", "mica_tpu_torch/ops/conv3d_in.py",
               "mica_tpu/ops/wino_pallas.py:378", pl, k2_sites),
+        # XLA reductions in the JAX package, no Pallas kernel
+        entry("in_sums", "triton", "mica_tpu_torch/ops/conv3d_in.py",
+              "mica_tpu/models/mica.py:71,97", pl,
+              {f"C={c}": n for c, n in in_sums_sites(BASE).items()}),
         entry("depthwise3", "cuda", "mica_tpu_torch/csrc/depthwise3.cu",
               "mica_tpu/ops/depthwise_pallas.py:147", pl, {"C=64": 1, "C=128": 1, "C=256": 1}),
         entry("in_apply_ad", "triton", "mica_tpu_torch/ops/conv3d_in.py",

@@ -21,6 +21,10 @@ Kernel routing, in bf16 compute (``kernel_route``), site by site:
     (``mica_tpu/ops/wino_pallas.py:831-889``);
   * ``DualAttention``'s local conv: K3;
   * the stem's four Cin=1 convs at inference: K8;
+  * at inference, the InstanceNorm + ReLU that follow no K1 (the
+    DualAttention's after K3, the heads' two) and every average pool:
+    the statistics from ``in_sums``, then K2 in place for the norms
+    (``in_relu``, ``avg_pool``);
   * the rest (``feat_conv``, FPN laterals and smooths, head conv2,
     the cascade corrections, the 1x1s) are library convs and matmuls, as
     they were XLA ops outside any Pallas kernel in the JAX package.
@@ -59,7 +63,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import stem as stem_ops
-from ..ops.conv3d_in import conv3d, conv3d_in_relu, conv3d_in_relu_ad, k1_takes
+from ..ops.conv3d_in import (conv3d, conv3d_in_relu, conv3d_in_relu_ad, in_apply, in_stats,
+                              in_sums, k1_takes)
 from ..ops.depthwise import depthwise_conv3_ad
 
 # dropout units of one forward: the stem, (RDB, DualAttention, transition)
@@ -116,6 +121,30 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """Mean over (D, H, W) in f32, keepdims, cast back."""
     return x.float().mean(dim=(1, 2, 3), keepdim=True).to(x.dtype)
+
+
+def _voxels(x: torch.Tensor) -> int:
+    return x.shape[1] * x.shape[2] * x.shape[3]
+
+
+def in_relu(x: torch.Tensor, train: bool, kernels: bool) -> torch.Tensor:
+    """relu(instance_norm(x)).  At inference on the kernel route: the f32
+    sums from ``in_sums`` in ``instance_norm``'s variance form
+    (``in_stats``), then K2 over x in place, which the caller gives up; K2
+    rounds as the library expression does.  Otherwise the library ops,
+    which autograd records."""
+    if kernels and not train:
+        return in_apply(x, *in_stats(in_sums(x), _voxels(x)))
+    return torch.relu(instance_norm(x))
+
+
+def avg_pool(x: torch.Tensor, train: bool, kernels: bool) -> torch.Tensor:
+    """``global_avg_pool``; at inference on the kernel route the f32 sum
+    from ``in_sums`` over the voxel count, cast to x's dtype."""
+    if kernels and not train:
+        b, c = x.shape[0], x.shape[-1]
+        return (in_sums(x)[:, 0] / _voxels(x)).to(x.dtype).reshape(b, 1, 1, 1, c)
+    return global_avg_pool(x)
 
 
 class Dropout:
@@ -342,7 +371,7 @@ class MultiScaleInput(nn.Module):
         if drop is not None:
             exp_map = drop.channels(exp_map, rate)
         x_exp = self.stem(exp_map, train, kernels)
-        a = torch.relu(self.exp_attention["1"](global_avg_pool(x_exp)))
+        a = torch.relu(self.exp_attention["1"](avg_pool(x_exp, train, kernels)))
         a = torch.sigmoid(self.exp_attention["3"](a))
         x_exp_enh = x_exp * a
         exp_only = self.exp_downsizing(x_exp_enh)
@@ -363,10 +392,10 @@ class SEBlock(nn.Module):
         super().__init__()
         self.fc = _slots(_0=Dense(c, c // reduction), _3=Dense(c // reduction, c))
 
-    def forward(self, x: torch.Tensor, rate: float = 0.0,
-                drop: Optional[Dropout] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rate: float = 0.0, drop: Optional[Dropout] = None,
+                train: bool = False, kernels: bool = True) -> torch.Tensor:
         b, c = x.shape[0], x.shape[-1]
-        y = global_avg_pool(x).reshape(b, c)
+        y = avg_pool(x, train, kernels).reshape(b, c)
         y = torch.relu(self.fc["0"](y))
         if drop is not None:
             y = drop.elements(y, rate)
@@ -392,7 +421,7 @@ class ResidualDenseBlock(nn.Module):
         x1 = block([x], self.conv1)
         x2 = block([x, x1], self.conv2)
         x3 = block([x, x1, x2], self.conv3)
-        return self.se(x3, rate, drop)
+        return self.se(x3, rate, drop, train, kernels)
 
 
 class DualAttention(nn.Module):
@@ -406,8 +435,8 @@ class DualAttention(nn.Module):
                 train: bool = False, kernels: bool = True) -> torch.Tensor:
         lc = self.local_attn["0"]
         conv = depthwise_conv3_ad if kernels else depthwise_library
-        local = torch.relu(instance_norm(conv(x, lc.weight, lc.bias)))
-        g = torch.relu(self.global_attn["1"](global_avg_pool(x)))
+        local = in_relu(conv(x, lc.weight, lc.bias), train, kernels)
+        g = torch.relu(self.global_attn["1"](avg_pool(x, train, kernels)))
         if drop is not None:
             local = drop.channels(local, rate)
             g = drop.channels(g, rate)
@@ -468,15 +497,17 @@ class TaskHead(nn.Module):
         self.final = Conv(32, n_cls, 1)
 
     def rest(self, h1: torch.Tensor, out_slice: Optional[slice] = None, rate: float = 0.0,
-             drop: Optional[Dropout] = None) -> torch.Tensor:
+             drop: Optional[Dropout] = None, train: bool = False,
+             kernels: bool = True) -> torch.Tensor:
         """IN -> relu -> conv2 -> IN -> relu -> dropout -> calibration ->
         final 1x1 in f32.  ``out_slice`` crops before the 1x1, which is
-        exact."""
-        x = torch.relu(instance_norm(h1))
-        x = torch.relu(instance_norm(self.conv2(x)))
+        exact.  At inference on the kernel route h1 is overwritten
+        (``in_relu``)."""
+        x = in_relu(h1, train, kernels)
+        x = in_relu(self.conv2(x), train, kernels)
         if drop is not None:
             x = drop.channels(x, rate)
-        cal = torch.relu(self.calibration["1"](global_avg_pool(x)))
+        cal = torch.relu(self.calibration["1"](avg_pool(x, train, kernels)))
         if drop is not None:
             cal = drop.channels(cal, rate)
         x = x * torch.sigmoid(self.calibration["4"](cal))
@@ -539,16 +570,17 @@ class MICA(nn.Module):
         else:
             big = conv_same(torch.cat(list(fpn), dim=-1), k_big)
 
-        backbone = bb_h.rest(big[..., :64] + bb_h.conv1.bias.to(dt), None, rate, drop)
+        backbone = bb_h.rest(big[..., :64] + bb_h.conv1.bias.to(dt), None, rate, drop, train,
+                             kernels)
         bb_f = backbone.to(dt)
         h_ca = (big[..., 64:128] + conv_same(bb_f, ca_h.conv1.weight[:, fpn_ch:])
                 + ca_h.conv1.bias.to(dt))
-        ca = ca_h.rest(h_ca, None, rate, drop)
+        ca = ca_h.rest(h_ca, None, rate, drop, train, kernels)
         h_aa = (big[..., 128:192]
                 + conv_same(torch.cat([bb_f, ca.to(dt)], dim=-1),
                             aa_h.conv1.weight[:, fpn_ch:])
                 + aa_h.conv1.bias.to(dt))
-        aa = aa_h.rest(h_aa, out_slice, rate, drop)
+        aa = aa_h.rest(h_aa, out_slice, rate, drop, train, kernels)
         return backbone, ca, aa
 
     def forward(self, exp_map: torch.Tensor, af: Optional[torch.Tensor] = None,

@@ -21,6 +21,13 @@ its plain PyTorch version:
 does: f32 statistics in the E[x^2]-E[x]^2 form, variance clamped at 0,
 apply in the compute dtype.
 
+``in_sums`` (Triton) gives the same per-(batch, channel) sums of a bf16
+tensor that exists already, for the inference forward's other
+InstanceNorms (then K2) and its average pools: one read of 2 bytes an
+element, partials of voxel chunks summed in a fixed order by K5's second
+kernel, with chunks chosen without regard to the batch, so a sample's
+bits do not depend on it (``in_sums_plan``).
+
 The training path (``conv3d_in_relu_ad``, the ``Conv3dInReluFn`` autograd
 function) adds three Triton kernels, the passes of the reference's
 custom VJP ``wino_conv3d_in_relu_pallas_ad``:
@@ -52,7 +59,7 @@ from . import _build
 from ._build import SMEM_MAX
 
 launches = {"conv3d_stats": 0, "in_apply": 0, "in_apply_ad": 0, "in_bwd_stats": 0,
-            "in_bwd_apply": 0}
+            "in_bwd_apply": 0, "in_sums": 0}
 
 _BF16 = torch.bfloat16
 
@@ -678,9 +685,11 @@ K5_SUM_ROWS = 32          # chunks a step of the sum kernel
 
 @dataclass(frozen=True)
 class K5Plan:
-    """K5's plan for x̂, dy of ``shape`` (B, D, H, W, C): programs of
-    ``block_s`` voxels x ``block_c`` channels a tile, each summing ``chunk``
-    voxels (a multiple of ``block_s``) of one sample and channel block."""
+    """The plan of a chunked per-(b, c) sum over tensors of ``shape`` (B, D,
+    H, W, C), K5's (``k5_plan``) or ``in_sums``'s (``in_sums_plan``):
+    programs of ``block_s`` voxels x ``block_c`` channels a tile, each
+    summing ``chunk`` voxels (a multiple of ``block_s``) of one sample and
+    channel block."""
 
     shape: Tuple[int, int, int, int, int]
     block_s: int
@@ -746,6 +755,32 @@ def k5_plan(shape: Sequence[int], sm_count: int = 132) -> K5Plan:
 k5_kernels: dict = {}
 
 
+def _chunk_sums(cache: dict, key, kernel, inputs, plan: K5Plan, warps: int) -> torch.Tensor:
+    """Launches ``kernel`` over ``inputs`` (one partial row pair a sample,
+    chunk and channel block into ``plan.buffer``), then K5's second kernel,
+    which adds the chunks in a fixed order; returns the (B, 2, C) sums.
+    ``cache[key]`` keeps the compiled pair and its launchers."""
+    b, ch = plan.shape[0], plan.shape[4]
+    buf = torch.empty(plan.buffer, dtype=torch.float32, device=inputs[0].device)
+    args = (*inputs, buf, plan.voxels, ch, plan.chunk, plan.n_chunks)
+    sum_args = (buf, ch, plan.n_chunks)
+    compiled = cache.get(key)
+    if compiled is None:
+        # the first call of a key compiles through Triton's dispatcher; later
+        # calls launch the compiled pair directly, without the dispatcher's
+        # per-call binding and cache lookup, most of the host's time a call
+        _, _, (_, sum_kernel), _ = _ad_triton()
+        k = kernel[plan.grid](*args, BLOCK_S=plan.block_s, BLOCK_C=plan.block_c,
+                              num_warps=warps)
+        s = sum_kernel[plan.sum_grid](*sum_args, BLOCK_R=K5_SUM_ROWS,
+                                      BLOCK_C=plan.block_c, num_warps=4)
+        cache[key] = (k, s, k[plan.grid], s[plan.sum_grid])
+    else:
+        compiled[2](*args, plan.block_s, plan.block_c)
+        compiled[3](*sum_args, K5_SUM_ROWS, plan.block_c)
+    return buf[:b]
+
+
 def in_bwd_stats(xh: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """K5, replaces ``_in_bwd_stats_T``.  Per-(b, c) sums of g = dy·[x̂>0]
     and g·x̂ over the voxels: (B, 2, C) f32, in a fixed order (``k5_plan``)."""
@@ -753,28 +788,107 @@ def in_bwd_stats(xh: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         return in_bwd_stats_plain(xh, dy)
     _check_bf16_5d("in_bwd_stats", xh, dy)
     plan = k5_plan(xh.shape, _build.sm_count(xh.device))
-    b, ch = plan.shape[0], plan.shape[4]
-    buf = torch.empty(plan.buffer, dtype=torch.float32, device=xh.device)
-    args = (xh, dy, buf, plan.voxels, ch, plan.chunk, plan.n_chunks, plan.block_s,
-            plan.block_c)
-    sum_args = (buf, ch, plan.n_chunks, K5_SUM_ROWS, plan.block_c)
     key = (plan, xh.device, xh.data_ptr() % 16 == 0, dy.data_ptr() % 16 == 0)
-    compiled = k5_kernels.get(key)
-    if compiled is None:
-        # the first call of a key compiles through Triton's dispatcher; later
-        # calls launch the compiled pair directly, without the dispatcher's
-        # per-call binding and cache lookup, most of the host's time a call
-        _, _, (kernel, sum_kernel), _ = _ad_triton()
-        k = kernel[plan.grid](*args[:7], BLOCK_S=plan.block_s, BLOCK_C=plan.block_c,
-                              num_warps=K5_WARPS)
-        s = sum_kernel[plan.sum_grid](*sum_args[:3], BLOCK_R=K5_SUM_ROWS,
-                                      BLOCK_C=plan.block_c, num_warps=4)
-        k5_kernels[key] = (k, s, k[plan.grid], s[plan.sum_grid])
-    else:
-        compiled[2](*args)
-        compiled[3](*sum_args)
+    _, _, (kernel, _), _ = _ad_triton()
+    sums = _chunk_sums(k5_kernels, key, kernel, (xh, dy), plan, K5_WARPS)
     launches["in_bwd_stats"] += 1
-    return buf[:b]
+    return sums
+
+
+# ``in_sums``: the statistics of the inference forward's InstanceNorms that
+# follow no K1 (the DualAttention after K3, the heads' two) and of its
+# average pools.  The tensor exists already, so one read of 2 bytes an
+# element: K5's design over one operand, x and x² summed into tile-shaped
+# f32 accumulators over a chunk of voxels, one partial row pair a (sample,
+# chunk, channel block) in K5's buffer layout, then K5's second kernel adds
+# the chunks in a fixed order.  The chunk comes from a sample's voxels, C
+# and the SM count, never from the batch, so a sample's sums are the same
+# bits at any batch; no atomics and no zero fill.
+# Of the tiles (2048-16384 elements), warps (4, 8) and programs an SM (1-8)
+# timed on an H100 at the forward's widths at 8 x 64^3, the fastest that
+# still fills the card at batch 1.
+IN_SUMS_TILE = 4096           # elements of a (BLOCK_S, BLOCK_C) tile: 32 a thread
+IN_SUMS_WARPS = 4
+IN_SUMS_PROGRAMS_PER_SM = 2   # one sample's programs an SM, so batch 1 fills the card
+
+
+def in_sums_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``in_sums``: (B, 2, C) f32 sums over the voxels of
+    x's f32 value and of its square, the sums whose quotients by the voxel
+    count are ``models.mica``'s ``instance_norm`` and ``global_avg_pool``
+    means."""
+    xf = x.float()
+    return torch.stack([xf.sum(dim=(1, 2, 3)), (xf * xf).sum(dim=(1, 2, 3))], dim=1)
+
+
+@functools.lru_cache(maxsize=64)
+def in_sums_plan(shape: Sequence[int], sm_count: int = 132) -> K5Plan:
+    """``in_sums``'s plan for (B, D, H, W, C): about
+    ``IN_SUMS_PROGRAMS_PER_SM`` programs an SM for each sample, the chunk
+    taken from a sample's voxel count, C and ``sm_count`` alone."""
+    b, d, h, w, c = (int(v) for v in shape)
+    block_c = min(128, max(16, _pow2_at_least(c)))
+    block_s = IN_SUMS_TILE // block_c
+    tiles = -(-(d * h * w) // block_s)
+    n = min(tiles, max(1, IN_SUMS_PROGRAMS_PER_SM * sm_count // -(-c // block_c)))
+    return K5Plan((b, d, h, w, c), block_s, block_c, -(-tiles // n) * block_s)
+
+
+_in_sums_kernel = None
+
+
+def _in_sums_triton():
+    global _in_sums_kernel
+    if _in_sums_kernel is None:
+        import triton
+        import triton.language as tl
+
+        @triton.jit
+        def in_stats_sum_kernel(x_ptr, buf_ptr, S, C, CHUNK, N_CHUNKS,
+                                BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
+            pid_s = tl.program_id(0)
+            pid_c = tl.program_id(1)
+            b = tl.program_id(2)
+            cols = pid_c * BLOCK_C + tl.arange(0, BLOCK_C)
+            cmask = cols < C
+            acc_x = tl.zeros((BLOCK_S, BLOCK_C), dtype=tl.float32)
+            acc_xx = tl.zeros((BLOCK_S, BLOCK_C), dtype=tl.float32)
+            start = pid_s * CHUNK
+            for s0 in range(start, tl.minimum(start + CHUNK, S), BLOCK_S):
+                rows = s0 + tl.arange(0, BLOCK_S)
+                offs = ((b * S + rows).to(tl.int64))[:, None] * C + cols[None, :]
+                mask = (rows < S)[:, None] & cmask[None, :]
+                x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+                acc_x += x
+                acc_xx += x * x
+            # rows B + b·N_CHUNKS + chunk of the (B·(1 + N_CHUNKS), 2, C)
+            # buffer, as K5 writes them
+            row = (tl.num_programs(2) + b * N_CHUNKS + pid_s) * 2 * C
+            tl.store(buf_ptr + row + cols, tl.sum(acc_x, axis=0), mask=cmask)
+            tl.store(buf_ptr + row + C + cols, tl.sum(acc_xx, axis=0), mask=cmask)
+
+        _in_sums_kernel = in_stats_sum_kernel
+    return _in_sums_kernel
+
+
+# (plan, device, x 16-byte aligned) -> the two compiled kernels and their
+# launchers, as ``k5_kernels``
+in_sums_kernels: dict = {}
+
+
+def in_sums(x: torch.Tensor) -> torch.Tensor:
+    """Per-(b, c) sums of x and x² over the voxels of a (B, D, H, W, C)
+    tensor, of x's f32 value: (B, 2, C) f32.  On the card x must be
+    contiguous bf16; the sums are added in a fixed order that does not
+    depend on B (``in_sums_plan``)."""
+    if x.device.type == "cpu":
+        return in_sums_plain(x)
+    _check_bf16_5d("in_sums", x)
+    plan = in_sums_plan(x.shape, _build.sm_count(x.device))
+    key = (plan, x.device, x.data_ptr() % 16 == 0)
+    sums = _chunk_sums(in_sums_kernels, key, _in_sums_triton(), (x,), plan, IN_SUMS_WARPS)
+    launches["in_sums"] += 1
+    return sums
 
 
 def in_bwd_apply(xh: torch.Tensor, dy: torch.Tensor, m1: torch.Tensor,

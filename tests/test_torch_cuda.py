@@ -19,7 +19,9 @@ that would leave the volume unwritten; device candidate extraction equals
 the host path in order and ``pred`` and to 1e-12 in ``coords`` and ``aa``.
 K11 and K13 are bitwise equal to their bf16 plain versions, in each mode
 and in place or not; K12's f32 sums stay within 1e-5 of the sum of the
-terms' magnitudes.  The f32 route of the engine (library convs, TF32 off)
+terms' magnitudes; ``in_sums`` within 1e-5 of its terms' magnitudes,
+equal to the bit from call to call and from batch 8 to a sample alone,
+and a whole bf16 forward repeats to the bit.  The f32 route of the engine (library convs, TF32 off)
 stays within 1e-4 of the CPU's probabilities.  The replicated engine
 through a one-rank NCCL group equals the plain engine to the bit (f32,
 cuDNN deterministic).
@@ -283,6 +285,75 @@ def test_in_bwd_stats_takes_a_misaligned_operand(gen):
         assert ((st - want).abs() <= 1e-5 * mag + 1e-4).all()
         assert torch.equal(conv3d_in.in_bwd_stats(xh, dy), st)
     assert flat[1:].data_ptr() % 16 == 2
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 16, 16, 16, 16), (8, 16, 16, 16, 32), (2, 32, 32, 32, 64), (2, 16, 16, 16, 128),
+    (1, 16, 16, 16, 256),             # the forward's widths at base 16 and 64
+    (3, 5, 7, 9, 24),                 # C 24, 315 voxels: masked channels and rows
+    (2, 9, 10, 11, 96),               # C 96: one masked 128-channel block
+])
+def test_in_sums_matches_plain_and_repeats_to_the_bit(gen, shape):
+    """``in_sums`` within 1e-5 of the sum of |x| and x², and equal to the
+    bit from call to call: partials of fixed chunks summed in a fixed
+    order."""
+    from mica_tpu_torch.ops import conv3d_in
+
+    x = (torch.randn(*shape, device="cuda", generator=gen) + 0.5).to(torch.bfloat16)
+    before = conv3d_in.launches["in_sums"]
+    st = conv3d_in.in_sums(x)
+    assert conv3d_in.launches["in_sums"] == before + 1
+    assert st.shape == (shape[0], 2, shape[-1]) and st.dtype == torch.float32
+    want = conv3d_in.in_sums_plain(x)
+    mag = conv3d_in.in_sums_plain(x.abs())
+    assert ((st - want).abs() <= 1e-5 * mag + 1e-4).all()
+    assert torch.equal(conv3d_in.in_sums(x), st)
+
+
+@pytest.mark.parametrize("c", [16, 64, 256])
+def test_in_sums_of_a_sample_do_not_depend_on_the_batch(gen, c):
+    """At the engine's 8 x 64^3 batch, samples 0 and 7 alone give the bits
+    they give in the batch."""
+    from mica_tpu_torch.ops import conv3d_in
+
+    x = torch.randn(8, 64, 64, 64, c, device="cuda", generator=gen).to(torch.bfloat16)
+    eight = conv3d_in.in_sums(x)
+    for i in (0, 7):
+        assert torch.equal(conv3d_in.in_sums(x[i:i + 1]), eight[i:i + 1])
+
+
+def test_in_sums_takes_a_misaligned_operand(gen):
+    """An x 2 bytes past a 16-byte boundary: Triton specialises on the
+    pointer's alignment, so the wrapper keeps a compiled pair for each."""
+    from mica_tpu_torch.ops import conv3d_in
+
+    shape = (2, 5, 6, 11, 24)
+    n = 2 * 5 * 6 * 11 * 24
+    flat = torch.randn(n + 1, device="cuda", generator=gen).to(torch.bfloat16)
+    assert flat[1:].data_ptr() % 16 == 2
+    for x in (flat[:n].view(shape), flat[1:].view(shape)):
+        st = conv3d_in.in_sums(x)
+        mag = conv3d_in.in_sums_plain(x.abs())
+        assert ((st - conv3d_in.in_sums_plain(x)).abs() <= 1e-5 * mag + 1e-4).all()
+        assert torch.equal(conv3d_in.in_sums(x), st)
+
+
+def test_mica_bf16_forward_repeats_to_the_bit(gen):
+    """A whole bf16 forward at base 64, twice: the same bits, with the 19
+    ``in_sums`` launches a forward."""
+    from mica_tpu_torch.models.mica import MICA
+    from mica_tpu_torch.ops import conv3d_in
+
+    model = MICA(base=64).init_weights(torch.Generator().manual_seed(0)).cuda()
+    x = torch.rand(2, 32, 32, 32, 1, device="cuda", generator=gen)
+    af = (torch.rand(2, 32, 32, 32, 24, device="cuda", generator=gen) < 0.05).float()
+    before = conv3d_in.launches["in_sums"]
+    with torch.no_grad():
+        first = model(x, af)
+        again = model(x, af)
+    assert conv3d_in.launches["in_sums"] == before + 38
+    for a, b in zip(first, again):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("shape", [
@@ -640,8 +711,9 @@ def test_scale2_refuses_what_it_would_have_to_copy(gen):
 
 
 def test_predict_volume_base16_bf16_takes_k1_where_it_takes_the_widths(gen):
-    """bf16 at base 16 on the card: K1 and K2 launch at the 5 of a
-    forward's 13 sites whose widths K1 takes (``k1_takes``), K3 at 3, K8
+    """bf16 at base 16 on the card: K1 launches at the 5 of a forward's 13
+    sites whose widths K1 takes (``k1_takes``), K2 after those and at the 9
+    norms that take ``in_sums`` (19 a forward with the pools), K3 at 3, K8
     once, and the probabilities stay within 0.1 of the f32 CPU's."""
     import numpy as np
 
@@ -660,9 +732,10 @@ def test_predict_volume_base16_bf16_takes_k1_where_it_takes_the_widths(gen):
     got = pred.predict_volume(vol, af)
     fw = pred.timing["n_forwards"]
     after = dict(conv3d_in.launches, **depthwise.launches, **stem.launches)
-    assert {k: after[k] - before[k] for k in ("conv3d_stats", "in_apply", "depthwise3",
-                                              "stem9")} == {
-        "conv3d_stats": 5 * fw, "in_apply": 5 * fw, "depthwise3": 3 * fw, "stem9": fw}
+    assert {k: after[k] - before[k] for k in ("conv3d_stats", "in_apply", "in_sums",
+                                              "depthwise3", "stem9")} == {
+        "conv3d_stats": 5 * fw, "in_apply": 14 * fw, "in_sums": 19 * fw, "depthwise3": 3 * fw,
+        "stem9": fw}
     want = engine.SlidingWindowPredictor(sd, batch_size=2, dtype=torch.float32,
                                          base_filters=16, core=16, halo=8,
                                          device="cpu").predict_volume(vol, af)
@@ -688,7 +761,7 @@ def test_trainer_step_base16_bf16_on_the_card(gen):
     assert np.isfinite(float(met["total_loss"]))
     assert {k: conv3d_in.launches[k] - before[k] for k in before} == {
         "conv3d_stats": 13, "in_apply": 0, "in_apply_ad": 8, "in_bwd_stats": 5,
-        "in_bwd_apply": 5}
+        "in_bwd_apply": 5, "in_sums": 0}
 
 
 def test_merizo_on_the_card_matches_the_cpu(gen):
