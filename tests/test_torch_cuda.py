@@ -25,12 +25,63 @@ and a whole bf16 forward repeats to the bit.  The f32 route of the engine (libra
 stays within 1e-4 of the CPU's probabilities.  The replicated engine
 through a one-rank NCCL group equals the plain engine to the bit (f32,
 cuDNN deterministic).
+
+Beside small and odd shapes, each kernel test takes the shapes the port
+runs it at: the engine's batch of 8 x 64^3 windows at every width of
+MICA's base-64 forward and training step, and the sites of the base-16
+model that the learned test trains, where they differ.  There the limits
+above hold, and where a check reads a sum's error against its terms the
+output's limit is per sample and channel: K1's statistics within 1e-4
+of sum |y| and of sum y^2 (plus 1e-3), ``in_sums``, K5, K7 and K12 within
+1e-5 of their terms' magnitudes.  K2, K4 and K6 also stay within 1e-2
+(K6: 2e-2) of their f32 plain versions from the same bf16 inputs.  K1
+repeats to the bit at each forward site, over two calls and for a sample
+alone; the whole bf16 forward and the engine repeat to the bit, and a
+window's output does not depend on the other windows of its batch.
 """
 
 import pytest
 import torch
 
+from mica_tpu_torch.ops import conv3d_in as _conv3d_in
+
 pytestmark = pytest.mark.cuda
+
+ENGINE_BATCH = (8, 64, 64, 64)      # the engine's batch of 64^3 windows
+# 8 of the 64 cores of 48 of a 160^3 map's 192^3 volumes
+ENGINE_CORES = [[0, 0, 0], [48, 96, 144], [144, 48, 0], [96, 144, 48], [0, 144, 96],
+                [144, 0, 144], [48, 48, 48], [96, 0, 96]]
+LEARNED_FWD = (2, 32, 32, 32)       # the learned test's forward check
+LEARNED_SITES = [(cis, co) for cis, co, st in _conv3d_in.k1_sites(16)
+                 if st and _conv3d_in.k1_takes(cis, co)]
+
+
+def _k1_cases():
+    """(shape, parts' channels, Co, form) of K1: hand-picked geometries,
+    then each forward site at base 64 on the engine's batch with
+    statistics (``stats``) and without, bias as the forward passes it
+    (``bias``, ``plain``), each dx geometry of a base-64 training step
+    (``dx``: the flipped, transposed weight of a Co -> sum Ci conv, no
+    bias), and the base-16 sites K1 takes (at the learned forward check's
+    shape too) with their dx convs, where they are not base 64's."""
+    cases = [
+        ((2, 8, 8, 8), [64], 32, "stats"),
+        ((2, 8, 8, 8), [64, 32, 32], 64, "stats"),     # BK 32 over a 64-channel part
+        ((2, 8, 8, 8), [128, 64], 64, "stats"),        # BK 64, two parts
+        ((1, 8, 8, 8), [64, 64, 64], 192, "plain"),    # the heads: one N tile of 192
+        ((1, 6, 8, 8), [64], 512, "stats"),            # two N tiles of 256
+        ((3, 5, 7, 9), [32], 128, "stats"),            # odd: bricks cut every edge, W < brick
+        ((2, 9, 10, 5), [32], 96, "plain"),            # a dx geometry, 32 -> 96
+        ((2, 16, 16, 16), [64], 32, "stats"),          # many tiles per CTA
+    ]
+    for cis, co, st in _conv3d_in.k1_sites(64):
+        cases += [(ENGINE_BATCH, cis, co, "stats"),
+                  (ENGINE_BATCH, cis, co, "bias" if st else "plain")]
+    cases += [(ENGINE_BATCH, [ci], co, "dx") for ci, co in _conv3d_in.k1_dx_sites(64)]
+    for cis, co in LEARNED_SITES:
+        cases += [(ENGINE_BATCH, cis, co, "stats"), (LEARNED_FWD, cis, co, "stats"),
+                  (ENGINE_BATCH, [co], sum(cis), "dx")]
+    return [c for i, c in enumerate(cases) if c not in cases[:i]]
 
 
 @pytest.fixture
@@ -45,24 +96,20 @@ def _close(got, want, rel=1e-2):
     assert err <= rel * want.float().abs().max().item(), err
 
 
-@pytest.mark.parametrize("shape,cis,co,stats", [
-    ((2, 8, 8, 8), [64], 32, True),
-    ((2, 8, 8, 8), [64, 32, 32], 64, True),       # BK 32 over a 64-channel part
-    ((2, 8, 8, 8), [128, 64], 64, True),          # BK 64, two parts
-    ((1, 8, 8, 8), [64, 64, 64], 192, False),     # the heads: one N tile of 192
-    ((1, 6, 8, 8), [64], 512, True),              # two N tiles of 256
-    ((3, 5, 7, 9), [32], 128, True),              # odd: bricks cut every edge, W < brick
-    ((2, 9, 10, 5), [32], 96, False),             # a dx geometry, 32 -> 96
-    ((2, 16, 16, 16), [64], 32, True),            # many tiles per CTA
-])
-def test_conv3d_stats_matches_plain(gen, shape, cis, co, stats):
+@pytest.mark.parametrize("shape,cis,co,form", _k1_cases())
+def test_conv3d_stats_matches_plain(gen, shape, cis, co, form):
     from mica_tpu_torch.ops import conv3d_in
 
     torch.backends.cudnn.allow_tf32 = False
     parts = [torch.randn(*shape, c, device="cuda", generator=gen).to(torch.bfloat16)
              for c in cis]
-    w = torch.randn(co, sum(cis), 3, 3, 3, device="cuda", generator=gen) * 0.05
-    b = torch.randn(co, device="cuda", generator=gen) if stats else None
+    if form == "dx":        # the forward conv's weight, Co -> sum Ci, flipped and transposed
+        w = torch.randn(sum(cis), co, 3, 3, 3, device="cuda", generator=gen) * 0.05
+        w = w.flip(2, 3, 4).transpose(0, 1)
+    else:
+        w = torch.randn(co, sum(cis), 3, 3, 3, device="cuda", generator=gen) * 0.05
+    b = torch.randn(co, device="cuda", generator=gen) if form in ("stats", "bias") else None
+    stats = form == "stats"
     before = conv3d_in.launches["conv3d_stats"]
     out, st = conv3d_in.conv3d(parts, w, b, with_stats=stats)
     ref, ref_st = conv3d_in.conv3d_plain([p.float() for p in parts],
@@ -73,6 +120,32 @@ def test_conv3d_stats_matches_plain(gen, shape, cis, co, stats):
     _close(out, ref)
     if stats:
         _close(st, ref_st, rel=1e-4)
+        err = (st - ref_st).abs()
+        assert (err[:, 0] <= 1e-4 * ref.abs().sum(dim=(1, 2, 3)) + 1e-3).all()
+        assert (err[:, 1] <= 1e-4 * ref_st[:, 1] + 1e-3).all()
+
+
+@pytest.mark.parametrize("cis,co,stats", _conv3d_in.k1_sites(64))
+def test_conv3d_stats_repeats_to_the_bit(gen, cis, co, stats):
+    """K1 at each forward site at base 64 on the engine's batch, as the
+    forward runs it: a second call, and sample 0 alone at batch 1, give
+    the same bits, output and statistics; the statistics' second kernel
+    (the partials' fixed-order sum) equals its plain version to the bit."""
+    from mica_tpu_torch.ops import conv3d_in
+
+    parts = [torch.randn(*ENGINE_BATCH, c, device="cuda", generator=gen).to(torch.bfloat16)
+             for c in cis]
+    w = torch.randn(co, sum(cis), 3, 3, 3, device="cuda", generator=gen) * 0.05
+    b = torch.randn(co, device="cuda", generator=gen) if stats else None
+    out, st = conv3d_in.conv3d(parts, w, b, with_stats=stats)
+    again, st2 = conv3d_in.conv3d(parts, w, b, with_stats=stats)
+    one, st1 = conv3d_in.conv3d([p[:1].contiguous() for p in parts], w, b, with_stats=stats)
+    assert torch.equal(out, again) and torch.equal(out[:1], one)
+    if stats:
+        assert torch.equal(st, st2) and torch.equal(st[:1], st1)
+        plan = conv3d_in.k1_plan(cis, co, ENGINE_BATCH)
+        part = torch.randn(plan.partials, device="cuda", generator=gen)
+        assert torch.equal(conv3d_in.sum_partials(part), conv3d_in.sum_partials_plain(part))
 
 
 def test_conv3d_stats_sums_per_sample_when_ctas_span_samples(gen):
@@ -115,17 +188,22 @@ def test_conv3d_stats_refuses_misaligned_operands(gen):
                                        False)[0])
 
 
-@pytest.mark.parametrize("c", [32, 192, 512])
-def test_in_apply_matches_plain_bitwise(gen, c):
+@pytest.mark.parametrize("shape,c", [((2, 4, 6, 8), c) for c in (32, 192, 512)]
+                         + [(ENGINE_BATCH, c) for c in (32, 64, 128, 256, 512)]
+                         + [(LEARNED_FWD, c) for c in (32, 64, 128)])
+def test_in_apply_matches_plain_bitwise(gen, shape, c):
     from mica_tpu_torch.ops import conv3d_in
 
-    y = torch.randn(2, 4, 6, 8, c, device="cuda", generator=gen).to(torch.bfloat16)
-    mean = torch.randn(2, c, device="cuda", generator=gen)
-    scale = torch.rand(2, c, device="cuda", generator=gen) + 0.5
+    y = torch.randn(*shape, c, device="cuda", generator=gen).to(torch.bfloat16)
+    mean = torch.randn(shape[0], c, device="cuda", generator=gen)
+    scale = torch.rand(shape[0], c, device="cuda", generator=gen) + 0.5
     want = conv3d_in.in_apply_plain(y, mean, scale)
+    want32 = conv3d_in.in_apply_plain(y.float(), mean.to(torch.bfloat16).float(),
+                                      scale.to(torch.bfloat16).float())
     got = conv3d_in.in_apply(y, mean, scale)
     assert got.data_ptr() == y.data_ptr()  # in place
     assert torch.equal(got, want)
+    _close(got, want32)
 
 
 @pytest.mark.parametrize("c", [64, 256])
@@ -145,7 +223,9 @@ def test_depthwise_matches_plain(gen, c):
     ((1, 3, 1, 130, 24), False),      # C 24: a 24-channel group; 9 x tiles
     ((2, 1, 13, 21, 64), False),      # D = 1: both z neighbours outside
     ((2, 16, 16, 16, 128), True),     # the dx form: flipped taps, zero bias
-])
+    ((3, 16, 16, 16, 128), False),    # a short batch of 16^3 windows
+] + [(ENGINE_BATCH + (c,), flip) for c in (16, 32, 64, 128, 256) for flip in (False, True)]
+  + [(LEARNED_FWD + (c,), flip) for c in (16, 32, 64) for flip in (False, True)])
 def test_depthwise_odd_shapes_and_dx_form_match_plain(gen, shape, flip):
     from mica_tpu_torch.ops import depthwise
 
@@ -210,25 +290,35 @@ def test_wrappers_refuse_f32_on_card(gen):
                                   torch.zeros(32, device="cuda"))
 
 
-@pytest.mark.parametrize("c", [32, 192, 512])
-def test_in_apply_ad_matches_plain_bitwise(gen, c):
+@pytest.mark.parametrize("shape,c", [((2, 4, 6, 8), c) for c in (32, 192, 512)]
+                         + [(ENGINE_BATCH, c) for c in (32, 64, 128, 256, 512)])
+def test_in_apply_ad_matches_plain_bitwise(gen, shape, c):
+    """Bitwise against the bf16 plain version; y and x^ within 1e-2 of the
+    largest |x^| of the f32 one."""
     from mica_tpu_torch.ops import conv3d_in
 
-    x = torch.randn(2, 4, 6, 8, c, device="cuda", generator=gen).to(torch.bfloat16)
-    mean = torch.randn(2, c, device="cuda", generator=gen)
-    scale = torch.rand(2, c, device="cuda", generator=gen) + 0.5
+    x = torch.randn(*shape, c, device="cuda", generator=gen).to(torch.bfloat16)
+    mean = torch.randn(shape[0], c, device="cuda", generator=gen)
+    scale = torch.rand(shape[0], c, device="cuda", generator=gen) + 0.5
     want_y, want_xh = conv3d_in.in_apply_ad_plain(x, mean, scale)
+    f32_y, f32_xh = conv3d_in.in_apply_ad_plain(x.float(), mean.to(torch.bfloat16).float(),
+                                                scale.to(torch.bfloat16).float())
     before = conv3d_in.launches["in_apply_ad"]
     y, xh = conv3d_in.in_apply_ad(x, mean, scale)
     assert y.data_ptr() == x.data_ptr()  # y in place
     assert conv3d_in.launches["in_apply_ad"] == before + 1
     assert torch.equal(y, want_y) and torch.equal(xh, want_xh)
+    err = max((y.float() - f32_y).abs().max().item(), (xh.float() - f32_xh).abs().max().item())
+    assert err <= 1e-2 * f32_xh.abs().max().item(), err
 
 
-@pytest.mark.parametrize("shape", [(2, 4, 6, 8, 64), (3, 5, 7, 9, 192), (1, 16, 16, 16, 32)])
+@pytest.mark.parametrize("shape", [(2, 4, 6, 8, 64), (3, 5, 7, 9, 192), (1, 16, 16, 16, 32)]
+                         + [ENGINE_BATCH + (c,) for c in (32, 64, 128, 256, 512)])
 def test_in_bwd_kernels_match_plain(gen, shape):
-    """K5 against its f32 sums at 1e-5 of the terms' magnitudes; K6
-    bitwise against its bf16 plain version."""
+    """K5 against its f32 sums at 1e-5 of the terms' magnitudes, equal to
+    the bit from call to call; K6 bitwise against its bf16 plain version
+    and within 2e-2 of the largest value of its f32 one (bf16 rounding of
+    four ops)."""
     from mica_tpu_torch.ops import conv3d_in
 
     xh = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
@@ -237,10 +327,14 @@ def test_in_bwd_kernels_match_plain(gen, shape):
     want = conv3d_in.in_bwd_stats_plain(xh, dy)
     mag = conv3d_in.in_bwd_stats_plain(xh.abs(), dy.abs())
     assert ((st - want).abs() <= 1e-5 * mag + 1e-4).all()
+    assert torch.equal(conv3d_in.in_bwd_stats(xh, dy), st)
     n = shape[1] * shape[2] * shape[3]
     scale = torch.rand(shape[0], shape[-1], device="cuda", generator=gen) + 0.5
     args = (xh, dy, st[:, 0] / n, st[:, 1] / n, scale)
-    assert torch.equal(conv3d_in.in_bwd_apply(*args), conv3d_in.in_bwd_apply_plain(*args))
+    got = conv3d_in.in_bwd_apply(*args)
+    assert torch.equal(got, conv3d_in.in_bwd_apply_plain(*args))
+    r = [t.to(torch.bfloat16).float() for t in args[2:]]
+    _close(got, conv3d_in.in_bwd_apply_plain(xh.float(), dy.float(), *r), rel=2e-2)
 
 
 @pytest.mark.parametrize("shape", [
@@ -292,7 +386,7 @@ def test_in_bwd_stats_takes_a_misaligned_operand(gen):
     (1, 16, 16, 16, 256),             # the forward's widths at base 16 and 64
     (3, 5, 7, 9, 24),                 # C 24, 315 voxels: masked channels and rows
     (2, 9, 10, 11, 96),               # C 96: one masked 128-channel block
-])
+] + [ENGINE_BATCH + (c,) for c in (16, 32, 64, 128, 256)])
 def test_in_sums_matches_plain_and_repeats_to_the_bit(gen, shape):
     """``in_sums`` within 1e-5 of the sum of |x| and x², and equal to the
     bit from call to call: partials of fixed chunks summed in a fixed
@@ -310,7 +404,7 @@ def test_in_sums_matches_plain_and_repeats_to_the_bit(gen, shape):
     assert torch.equal(conv3d_in.in_sums(x), st)
 
 
-@pytest.mark.parametrize("c", [16, 64, 256])
+@pytest.mark.parametrize("c", [16, 32, 64, 128, 256])
 def test_in_sums_of_a_sample_do_not_depend_on_the_batch(gen, c):
     """At the engine's 8 x 64^3 batch, samples 0 and 7 alone give the bits
     they give in the batch."""
@@ -338,13 +432,36 @@ def test_in_sums_takes_a_misaligned_operand(gen):
         assert torch.equal(conv3d_in.in_sums(x), st)
 
 
-def test_mica_bf16_forward_repeats_to_the_bit(gen):
-    """A whole bf16 forward at base 64, twice: the same bits, with the 19
-    ``in_sums`` launches a forward."""
+@pytest.mark.parametrize("path", ["forward", "engine"])
+def test_mica_bf16_forward_repeats_to_the_bit(gen, path, tmp_path):
+    """``forward``: a whole bf16 forward at base 64, twice: the same bits,
+    with the 19 ``in_sums`` launches a forward.  ``engine``: on a 160^3
+    map with a docked model (bf16, batch 8, core 48, halo 8), two
+    ``predict_map`` runs, three more of the second's predictor and two of
+    a new one: seven runs, one set of volumes."""
     from mica_tpu_torch.models.mica import MICA
     from mica_tpu_torch.ops import conv3d_in
 
-    model = MICA(base=64).init_weights(torch.Generator().manual_seed(0)).cuda()
+    model = MICA(base=64).init_weights(torch.Generator().manual_seed(0))
+    if path == "engine":
+        import torch_parallel_ranks as ranks
+        from mica_tpu_torch.infer.engine import SlidingWindowPredictor
+        from mica_tpu_torch.infer.pipeline import build_af3_encoding, predict_map
+
+        kw = dict(batch_size=8, dtype=torch.bfloat16, base_filters=64, core=48, halo=8)
+        map_path, pdb_path = ranks.card_map(tmp_path, 160, 0)
+        runs = [predict_map(str(map_path), model, docked_pdb_path=str(pdb_path), **kw)
+                for _ in range(2)]
+        pred, prepared = runs[1]["predictor"], runs[1]["prepared_map"]
+        enc = build_af3_encoding(prepared, str(pdb_path))
+        runs += [pred.predict_volume(prepared.volume, enc) for _ in range(3)]
+        second = SlidingWindowPredictor(model, **kw)
+        runs += [second.predict_volume(prepared.volume, enc) for _ in range(2)]
+        first = ranks.probs(runs[0])
+        for i, run in enumerate(runs[1:], 1):
+            assert ranks.vol_dist(ranks.probs(run), first) == 0.0, f"run {i}"
+        return
+    model.cuda()
     x = torch.rand(2, 32, 32, 32, 1, device="cuda", generator=gen)
     af = (torch.rand(2, 32, 32, 32, 24, device="cuda", generator=gen) < 0.05).float()
     before = conv3d_in.launches["in_sums"]
@@ -356,6 +473,76 @@ def test_mica_bf16_forward_repeats_to_the_bit(gen):
         assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
+def _fingerprints(model, x, af) -> list:
+    """("module: op", per-window fingerprint) of every aten op in one
+    forward of ``x``, ``af``, in the order they run: an exact integer sum
+    of the output's bits per window, or None where the output does not
+    have the windows as its first axis or is an allocation (the
+    hand-written kernels fill it; the next op that reads it shows what
+    they wrote)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    n, stack, prints = len(x), ["MICA"], []
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            res = func(*args, **(kwargs or {}))
+            t = res[0] if isinstance(res, (tuple, list)) else res
+            fp = None
+            if (isinstance(t, torch.Tensor) and t.is_cuda and t.dim() > 0 and t.shape[0] == n
+                    and "empty" not in str(func)):
+                bits = t.detach().contiguous().view(n, -1).view(ints[t.element_size()])
+                fp = bits.long().sum(dim=1).tolist()
+            prints.append((f"{stack[-1]}: {func}", fp))
+            return res
+
+    def enter(name):
+        def hook(_mod, _inp):
+            stack.append(name or "MICA")
+        return hook
+
+    def leave(_mod, _inp, _out):
+        stack.pop()
+
+    handles = []
+    for name, m in model.named_modules():
+        handles += [m.register_forward_pre_hook(enter(name)), m.register_forward_hook(leave)]
+    try:
+        with torch.no_grad(), Record():
+            model(x, af)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    return prints
+
+
+@pytest.mark.parametrize("whole,start,n", [(8, 0, 4), (8, 4, 4), (3, 0, 2), (3, 2, 1)])
+def test_mica_bf16_forward_of_a_window_does_not_depend_on_its_batch(gen, whole, start, n):
+    """The engine's bf16 network at base 64 on 64^3 windows with AF3
+    channels, split as the engine splits a batch over two ranks (8 -> 4 +
+    4, the last batch of 3 -> 2 + 1): every op's output for the part's
+    windows has the bits it has in the whole batch; a failure names the
+    first module and op where it does not."""
+    from mica_tpu_torch.infer.engine import SlidingWindowPredictor
+    from mica_tpu_torch.models.mica import MICA
+
+    model = SlidingWindowPredictor(
+        MICA(base=64).init_weights(torch.Generator().manual_seed(0)), batch_size=8,
+        dtype=torch.bfloat16, base_filters=64, core=48, halo=8).model
+    x = torch.rand(whole, 64, 64, 64, 1, device="cuda", generator=gen)
+    af = (torch.rand(whole, 64, 64, 64, 24, device="cuda", generator=gen) < 0.03).float()
+    with torch.no_grad():     # the first forward also packs the stem's weight
+        model(x[:1], af[:1])
+    ref = _fingerprints(model, x, af)
+    got = _fingerprints(model, x[start:start + n], af[start:start + n])
+    assert [g[0] for g in got] == [r[0] for r in ref], "the two forwards ran different ops"
+    differ = [g[0] for g, r in zip(got, ref)
+              if g[1] is not None and r[1] is not None and g[1] != r[1][start:start + n]]
+    assert not differ, f"{len(differ)} of {len(got)} ops differ, the first {differ[0]}"
+
+
 @pytest.mark.parametrize("shape", [
     (2, 7, 6, 9, 64), (1, 16, 16, 16, 256), (2, 3, 4, 5, 8),
     (1, 64, 64, 64, 64),              # batch 1: the grid is cut into z segments
@@ -363,7 +550,7 @@ def test_mica_bf16_forward_repeats_to_the_bit(gen):
     (1, 3, 1, 130, 24),               # C 24: a 24-channel group; a single row
     (2, 1, 13, 21, 64),               # D = 1: both z neighbours outside
     (3, 16, 16, 16, 128),             # a short batch of 16^3 windows
-])
+] + [ENGINE_BATCH + (c,) for c in (16, 32, 64, 128, 256)])
 def test_depthwise_grads_matches_plain(gen, shape):
     """K7 within 1e-5 of the terms' magnitudes, and a second call on the
     same inputs equal to the bit (the partials are summed in a fixed
@@ -467,6 +654,7 @@ def _stem_inputs(gen, shape, c, offset=0):
     ((2, 33, 35, 37), 128),
     ((1, 9, 10, 24), 96),     # three passes of NG 8
     ((1, 6, 7, 16), 256),     # two passes of NG 32
+    (LEARNED_FWD, 32),
 ])
 def test_stem_conv_matches_plain(gen, shape, c):
     from mica_tpu_torch.ops import stem
@@ -507,7 +695,7 @@ def test_stem_conv_takes_an_unaligned_x_and_refuses_other_widths(gen):
 @pytest.mark.parametrize("with_af", [True, False])
 @pytest.mark.parametrize("extent,w,starts", [
     ((80, 80, 80), 32, [[0, 0, 0], [24, 24, 24], [48, 0, 24], [13, 7, 41], [48, 48, 48]]),
-    ((41, 43, 45), 16, [[0, 0, 0], [25, 27, 29], [3, 5, 7]]),      # nothing 16-byte aligned
+    ((41, 43, 45), 16, [[0, 0, 0], [25, 27, 29], [3, 5, 7], [13, 1, 22]]),  # nothing 16-byte aligned
     ((160, 160, 160), 64, [[0, 48, 96], [96, 0, 48]]),
     ((208, 208, 208), 64, [[0, 48, 96], [96, 0, 48], [144, 144, 144], [1, 2, 3], [47, 13, 5],
                            [0, 0, 0], [96, 96, 0], [48, 144, 96]]),   # the engine's frame
@@ -561,7 +749,11 @@ def test_gather_windows_leaves_a_start_outside_the_volume_unwritten(gen, extent,
     ((80, 80, 80), 24, 4, [[0, 0, 0], [24, 24, 24], [48, 0, 24], [48, 48, 48], [48, 48, 48]], 4),
     ((41, 43, 45), 13, 3, [[0, 0, 0], [26, 13, 31], [13, 26, 5]], 2),   # unaligned rows
     ((96, 96, 96), 48, 20, [[0, 48, 0], [48, 0, 48]], 2),
-])
+] + [((192, 192, 192), 48, 20, starts, n_valid)      # the engine's volumes for a 160^3 map
+     for starts in (ENGINE_CORES, [[48 * i + 1, 48 * j + 2, 48 * k + 3] for i, j, k in
+                                   ((0, 0, 0), (1, 2, 0), (2, 1, 2), (0, 2, 1), (2, 0, 0),
+                                    (1, 1, 1), (0, 1, 2), (2, 2, 2))])
+     for n_valid in (8, 5)])
 def test_scatter_cores_exact_and_skips_tail(gen, extent, c, a, starts, n_valid):
     from mica_tpu_torch.ops import window_copy as wc
 
@@ -636,7 +828,8 @@ def test_engine_keeps_volumes_on_the_card_through_the_copy_kernels(gen):
     assert kept["amino_acid_probability"].shape == (20,) + vol.shape
 
 
-@pytest.mark.parametrize("shape", [(3, 5, 13, 96), (2, 9, 16, 200)])  # odd R, C past a tile, H % 8
+@pytest.mark.parametrize("shape", [(3, 5, 13, 96), (2, 9, 16, 200),  # odd R, C past a tile, H % 8
+                                   (64, 64, 512, 128)])              # distill_ew_crash's
 @pytest.mark.parametrize("h_block", [0, 8])
 @pytest.mark.parametrize("body", ["k1", "k2", "k3", "k4"])
 def test_rows_ew_matches_plain_bitwise(gen, body, h_block, shape):
@@ -664,7 +857,8 @@ def test_rows_ew_matches_plain_bitwise(gen, body, h_block, shape):
 
 
 @pytest.mark.parametrize("shape,b_sz", [((3, 5, 16, 96), 8), ((2, 7, 13, 200), 8),
-                                        ((64, 1, 512, 128), 8), ((2, 3, 20, 32), 4)])
+                                        ((64, 1, 512, 128), 8), ((2, 3, 20, 32), 4),
+                                        ((64, 64, 512, 128), 8)])
 def test_masked_sq_stats_matches_plain(gen, shape, b_sz):
     from mica_tpu_torch.ops import ew_rows
 
@@ -678,9 +872,12 @@ def test_masked_sq_stats_matches_plain(gen, shape, b_sz):
     mag = ew_rows.masked_sq_stats_plain(x, dy.abs(), b_sz)
     assert got.shape == (b_sz, 2, shape[-1])
     assert ((got - want).abs() <= 1e-5 * mag + 1e-4).all()
+    assert torch.equal(ew_rows.masked_sq_stats(x, dy, b_sz), got)
 
 
-@pytest.mark.parametrize("n,offset", [(4096, 0), (1001, 0), (1001, 1), (7, 3), ((1 << 20) + 5, 0)])
+@pytest.mark.parametrize("n,offset", [(4096, 0), (1001, 0), (1001, 1), (7, 3), ((1 << 20) + 5, 0),
+                                      (8 * 64 ** 3 * 256, 0),   # probe_layout_boundary's tensor
+                                      (1 << 24, 1), ((1 << 24) + 3, 0)])
 def test_scale2_matches_plain_bitwise(gen, n, offset):
     """16-byte words with a tail, and a view that starts off the 16-byte
     grid (the element path)."""

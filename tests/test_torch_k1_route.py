@@ -9,7 +9,8 @@ to XLA's conv in the same way.  The wrappers are recorded by patching the
 names the model calls; each still runs its plain version.  The bf16 model
 at base 16 then matches the f32 one within the card's bf16 gates: the
 probabilities within 0.1, and a ``Trainer`` step's gradient at a
-whole-vector cosine of 0.85 (``chip_smoke.py``'s ``GRAD_FRESH_MIN``).
+whole-vector cosine of 0.85 (``GRAD_FRESH_MIN`` of
+``tests/test_torch_cuda_paths.py``).
 Its per-tensor gate of 0.7 is a base-64 reading: at base 16 a few small
 tensors (the stem's biases) fall below it on either route.
 """

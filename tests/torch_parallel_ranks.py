@@ -1,7 +1,8 @@
 """What each rank runs for tests/test_torch_parallel.py and
 tests/test_torch_parallel_procs.py, in processes that
 ``mica_tpu_torch.parallel.dryrun.spawn`` starts (gloo on the CPU), and
-the inputs both files make (``batch``, ``volumes``).  No JAX here: the
+the inputs both files make (``batch``, ``volumes``); last, what the card
+tests share, their world-2 rank (``mgpu_rank``) among it.  No JAX here: the
 test process computes the references.  Each rank function reads its
 inputs from ``workdir``, writes arrays there under the rank's name and
 returns a small JSON result."""
@@ -203,3 +204,120 @@ def fail_on_rank_1() -> dict:
         raise RuntimeError("rank 1 fails on purpose")
     dist.all_reduce(torch.zeros(1))
     return {}
+
+
+# ---- the card tests (tests/test_torch_cuda*.py) --------------------------
+
+# the data-parallel f32 step of the card's multi-GPU test: base, batch, window
+DP_BASE, DP_BATCH, DP_WIN = 16, 4, 32
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launches so far, by kernel."""
+    from mica_tpu_torch.ops import conv3d_in, depthwise, ew_rows, scale, stem, window_copy
+
+    return {k: v for c in (conv3d_in.launches, depthwise.launches, stem.launches,
+                           window_copy.launches, ew_rows.launches, scale.launches)
+            for k, v in c.items()}
+
+
+def launched_since(before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in launch_counts().items()}
+
+
+def card_map(out_dir, box: int, seed: int):
+    """(map, docked model) files of one protein-like domain, a residue per
+    1600 voxels, in the middle of an otherwise empty ``box``^3 map at 1 A
+    (``benchmark.gen``, on the card): the corner windows are empty."""
+    from benchmark import gen
+
+    traffic = dict(box=box, voxel_size=1.0, residues=max(1, box ** 3 // 1600),
+                   domains=[1, 1, 1], envelope=[0.0, 0.0, 0.0], sigma_a=1.5, noise=0.0,
+                   masked=False, maps=1)
+    return gen.map_pair(seed, traffic, Path(out_dir), "cuda")[0]
+
+
+def probs(out) -> tuple:
+    return tuple(np.asarray(out[k]) for k in VOLUME_KEYS[:3])
+
+
+def vol_dist(a, b) -> float:
+    return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+
+def dp_step(sd, seed: int, **mesh_kw):
+    """One f32 ``Trainer`` step at ``DP_BASE`` (augmentation, AF3 blanking
+    and the epoch-0 dropout on) from the weights ``sd`` on
+    ``synthetic_batch``, with cuDNN's deterministic algorithms: (loss, the
+    whole gradient, the parameters after the step)."""
+    from mica_tpu_torch.models.mica import dropout_rate_for_epoch
+    from mica_tpu_torch.train.data import synthetic_batch
+    from mica_tpu_torch.train.loss import task_lambdas
+    from mica_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(base_filters=DP_BASE, dtype=torch.float32, seed=seed, **mesh_kw)
+    state = tr.init_state()
+    tr.model.load_state_dict(sd)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        met = tr.train_step(state, synthetic_batch(DP_BATCH, DP_WIN, seed), task_lambdas(0),
+                            dropout_rate_for_epoch(0))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    params = list(tr.model.parameters())
+    grads = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1)
+                       for p in params]).double().cpu().numpy()
+    return (float(met["total_loss"]), grads,
+            torch.cat([p.detach().reshape(-1) for p in params]).cpu().numpy())
+
+
+def mgpu_rank(map_path: str, pdb_path: str, seed: int, workdir: str, base: int,
+              batch: int) -> dict:
+    """One rank of the card's world of 2: the replicated engine through
+    ``predict_map`` (bf16, core 48, halo 8) held against world 1's volumes
+    in ``workdir``, the ``shard_volumes`` engine and the replicated one
+    again; the f32 data-parallel step, then a bf16 one with its launches."""
+    import hashlib
+
+    from mica_tpu_torch.infer.engine import SlidingWindowPredictor
+    from mica_tpu_torch.infer.pipeline import build_af3_encoding, predict_map
+    from mica_tpu_torch.models.mica import MICA, dropout_rate_for_epoch
+    from mica_tpu_torch.parallel import distributed
+    from mica_tpu_torch.train.data import synthetic_batch
+    from mica_tpu_torch.train.loss import task_lambdas
+    from mica_tpu_torch.train.trainer import Trainer
+
+    wd = Path(workdir)
+    mesh = distributed.global_mesh()
+    model = MICA(base=base).init_weights(torch.Generator().manual_seed(seed))
+    kw = dict(batch_size=batch, dtype=torch.bfloat16, base_filters=base, core=48, halo=8,
+              mesh=mesh)
+    rep = SlidingWindowPredictor(model, **kw)
+    before = launch_counts()
+    first = predict_map(map_path, model, docked_pdb_path=pdb_path, predictor=rep)
+    launches = launched_since(before)
+    prepared = first["prepared_map"]
+    enc = build_af3_encoding(prepared, pdb_path)
+    rep_vols = probs(first)
+    world1 = np.load(wd / "world1.npz")
+    world1_err = vol_dist(rep_vols, tuple(world1[k] for k in ("bb", "ca", "aa")))
+    digest = hashlib.sha256(b"".join(v.tobytes() for v in rep_vols)).hexdigest()
+    sv = SlidingWindowPredictor(model, shard_volumes=True, **kw)
+    shard_err = vol_dist(probs(sv.predict_volume(prepared.volume, enc)), rep_vols)
+    rep_spread = vol_dist(probs(rep.predict_volume(prepared.volume, enc)), rep_vols)
+    loss, grads, params = dp_step(torch.load(wd / "dp_init.pt"), seed, mesh=mesh)
+    np.savez(wd / f"dp_{mesh.rank}.npz", grads=grads, params=params)
+    tr = Trainer(base_filters=DP_BASE, seed=seed, mesh=mesh)
+    state = tr.init_state()
+    before = launch_counts()
+    met = tr.train_step(state, synthetic_batch(DP_BATCH, DP_WIN, seed), task_lambdas(0),
+                        dropout_rate_for_epoch(0))
+    torch.cuda.synchronize()
+    return dict(rank=mesh.rank, device=str(mesh.device),
+                backend=torch.distributed.get_backend(), launches=launches,
+                timing=dict(first["timing"]), world1_err=world1_err, digest=digest,
+                shard_err=shard_err, rep_spread=rep_spread,
+                acc_bytes_rep=rep.timing["acc_bytes_per_device"],
+                acc_bytes_shard=sv.timing["acc_bytes_per_device"], dp_f32_loss=loss,
+                dp_bf16_loss=float(met["total_loss"]), dp_bf16_launches=launched_since(before))
