@@ -15,8 +15,11 @@
     under a data-parallel mesh ``batch_iterator`` reads only the rank's
     rows of each global batch (``RowShard``).
 
-Augmentation and AF3 blanking run on the device in the trainer; the
-loader only moves bytes.
+Samples and batches keep the types the dataset stores (a packed
+``ArrayDataset``: f32 density, uint8 AF3 bits, int8 labels), so a batch
+crosses to the card in about a quarter of its widened bytes; the trainer
+widens it there (``Trainer._to_device``).  Augmentation and AF3 blanking
+run on the device too: the loader only moves bytes.
 """
 
 from __future__ import annotations
@@ -77,11 +80,12 @@ class NpzGridsDataset:
 
 @dataclasses.dataclass
 class ArrayDataset:
-    """In-memory training windows."""
+    """In-memory training windows; a sample is the fields' rows in their
+    stored types, unwidened."""
 
     density: np.ndarray  # (N, W, W, W) float32
-    af3: np.ndarray  # (N, 24, W, W, W) uint8/float32
-    bb: np.ndarray  # (N, W, W, W) integer
+    af3: np.ndarray  # (N, 24, W, W, W) uint8 (packed) or float32
+    bb: np.ndarray  # (N, W, W, W) integer: int8 packed
     ca: np.ndarray
     aa: np.ndarray
 
@@ -89,9 +93,7 @@ class ArrayDataset:
         return len(self.density)
 
     def __getitem__(self, i: int):
-        return (self.density[i].astype(np.float32), self.af3[i].astype(np.float32),
-                self.bb[i].astype(np.int32), self.ca[i].astype(np.int32),
-                self.aa[i].astype(np.int32))
+        return self.density[i], self.af3[i], self.bb[i], self.ca[i], self.aa[i]
 
     def save(self, path: str) -> None:
         np.savez_compressed(path, density=self.density, af3=self.af3.astype(np.uint8),
@@ -148,10 +150,11 @@ def train_val_split(n: int, val_fraction: float = 0.2,
 def batch_iterator(dataset, batch_size: int, indices: Optional[np.ndarray] = None,
                    shuffle: bool = True, seed: int = 0, drop_last: bool = True,
                    mesh=None) -> Iterator:
-    """Yield numpy batches (density, af3, bb, ca, aa).  Under a distributed
-    ``mesh`` (every rank draws the same shuffle from ``seed``) a batch that
-    divides the world comes as this rank's ``RowShard``, the only rows it
-    reads; one that does not comes whole, for every rank to evaluate."""
+    """Yield numpy batches (density, af3, bb, ca, aa) in the dataset's
+    sample types.  Under a distributed ``mesh`` (every rank draws the same
+    shuffle from ``seed``) a batch that divides the world comes as this
+    rank's ``RowShard``, the only rows it reads; one that does not comes
+    whole, for every rank to evaluate."""
     idx = np.arange(len(dataset)) if indices is None else np.asarray(indices)
     if shuffle:
         idx = np.random.default_rng(seed).permutation(idx)

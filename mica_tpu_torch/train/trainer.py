@@ -64,6 +64,8 @@ logger = logging.getLogger(__name__)
 GRAD_HISTORY = 10
 GRAD_HISTORY_MIN = 5
 _EPOCH_KEYS = ("total_loss", "backbone_loss", "carbon_alpha_loss", "amino_acid_loss")
+# what the step computes on: density, AF3, bb, ca, aa
+BATCH_DTYPES = (torch.float32, torch.float32, torch.int32, torch.int32, torch.int32)
 
 
 @dataclasses.dataclass
@@ -202,10 +204,15 @@ class Trainer:
             grad_count=torch.zeros((), dtype=torch.int64, device=self.device))
 
     def _to_device(self, batch) -> List[torch.Tensor]:
+        """``batch``'s fields on the device, copied in the types they come in
+        (``h2d_bytes`` counts those: uint8 AF3 bits and int8 labels from a
+        packed dataset) and widened there to ``BATCH_DTYPES``.  A batch
+        already in those types comes through unchanged."""
         with span("train.to_device"):
             host = [torch.as_tensor(b) for b in batch]
             count("h2d_bytes", sum(t.nbytes for t in host))
-            return [t.to(self.device, non_blocking=True) for t in host]
+            return [t.to(self.device, non_blocking=True).to(dt)
+                    for t, dt in zip(host, BATCH_DTYPES)]
 
     # ------------------------------------------------------------------
     def train_step(self, state: TrainState, batch, lambdas,
@@ -222,8 +229,7 @@ class Trainer:
                     dropout_rate: float) -> Dict[str, torch.Tensor]:
         rows, first, total, split = self._rows(batch)
         density, af3, bb, ca, aa = self._to_device(rows)
-        dens = density[:, None].float()
-        af3 = af3.float()
+        dens = density[:, None]
         targets = torch.stack([bb, ca, aa], dim=1)
         if self.use_augmentation:
             dens, af3, targets = augment.augment_batch(self.gen, dens, af3, targets,
@@ -317,8 +323,7 @@ class Trainer:
             for batch in loader:
                 rows, _, _, split = self._rows(batch, whole_if_uneven=True)
                 density, af3, bb, ca, aa = self._to_device(rows)
-                outs = self.model(density[..., None].float(),
-                                  af3.float().movedim(1, -1).contiguous())
+                outs = self.model(density[..., None], af3.movedim(1, -1).contiguous())
                 denoms = None
                 if split:
                     d = torch.stack(class_weight_denominators((bb, ca, aa)))

@@ -21,7 +21,9 @@ Both sides get the same numpy inputs; weights go through
     forward through the plain versions: relative L2 1e-4 per tensor;
   * microbatch accumulation: gradients rtol 1e-4 / atol 1e-6 of the
     largest full-batch gradient (sums in another order);
-  * recomputation with dropout, and a resumed step: bitwise.
+  * recomputation with dropout, a resumed step, and steps fed the
+    loader's stored types against the same batches widened on the host:
+    bitwise.
 """
 
 import jax
@@ -29,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from mica_tpu.models.init import init_params_fast
 from mica_tpu.models.mica import MICA as JaxMICA
@@ -41,9 +44,12 @@ from mica_tpu.train.trainer import adaptive_clip as jax_adaptive_clip
 from mica_tpu_torch.models import mica as mica_mod
 from mica_tpu_torch.models.convert import state_dict_from_jax_params
 from mica_tpu_torch.models.mica import MICA, Dropout, dropout_rate_for_epoch
+from mica_tpu_torch.parallel.mesh import Mesh
 from mica_tpu_torch.train import augment, data, loss
-from mica_tpu_torch.train.trainer import (GRAD_HISTORY, PlateauScheduler, Trainer,
-                                          adaptive_clip, load_checkpoint, save_checkpoint)
+from mica_tpu_torch.train.trainer import (BATCH_DTYPES, GRAD_HISTORY, PlateauScheduler,
+                                          Trainer, adaptive_clip, load_checkpoint,
+                                          save_checkpoint)
+from mica_tpu_torch.utils import spans
 
 BASE = 16
 
@@ -510,6 +516,86 @@ def test_run_epoch_and_validation():
     val = tr.run_validation(st, data.batch_iterator(ds, 4, shuffle=False, drop_last=False), 0)
     assert set(val) == {"total_loss", "backbone_loss", "carbon_alpha_loss", "amino_acid_loss"}
     assert all(np.isfinite(v) for v in val.values())
+
+
+def _packed(n, d, seed):
+    """A dataset in the types ``ArrayDataset.save`` packs: f32 density,
+    uint8 AF3 bits, int8 labels."""
+    density, af3, bb, ca, aa = data.synthetic_batch(n, d, seed)
+    return data.ArrayDataset(density, af3.astype(np.uint8), bb.astype(np.int8),
+                             ca.astype(np.int8), aa.astype(np.int8))
+
+
+def _widened(batch):
+    """``batch`` widened on the host to the types the step computes on."""
+    return tuple(b.astype(t) for b, t in zip(batch, (np.float32, np.float32) + (np.int32,) * 3))
+
+
+NARROW = (np.float32, np.uint8, np.int8, np.int8, np.int8)
+
+
+def test_loader_keeps_the_stored_types_and_the_trainer_widens_them():
+    ds = _packed(6, 4, seed=3)
+    whole = list(data.batch_iterator(ds, 4, seed=2, drop_last=False))
+    for batch, idx in zip(whole, np.split(np.random.default_rng(2).permutation(6), [4])):
+        assert tuple(b.dtype for b in batch) == NARROW
+        for b, f in zip(batch, ("density", "af3", "bb", "ca", "aa")):
+            np.testing.assert_array_equal(b, getattr(ds, f)[idx])
+    for r in range(2):
+        m = Mesh(rank=r, size=2, local_rank=r, device=torch.device("cpu"), distributed=True)
+        shard = next(data.batch_iterator(ds, 4, seed=2, mesh=m))
+        assert isinstance(shard, data.RowShard) and shard.first == 2 * r
+        assert tuple(b.dtype for b in shard.rows) == NARROW
+        for a, b in zip(shard.rows, whole[0]):
+            np.testing.assert_array_equal(a, b[2 * r:2 * r + 2])
+
+    tr = _trainer()
+    spans.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = tr._to_device(whole[0])
+        assert spans.counter("h2d_bytes") == sum(b.nbytes for b in whole[0])
+        assert spans.counter("h2d_bytes") == 4 * 4 ** 3 * (4 + 24 + 3)
+    finally:
+        spans.clear()
+    assert tuple(t.dtype for t in got) == BATCH_DTYPES
+    for t, w in zip(got, _widened(whole[0])):
+        assert torch.equal(t, torch.from_numpy(w))
+    # a batch already in f32 and int32 comes through as it is
+    wide = data.synthetic_batch(2, 4, seed=1)
+    for t, w, dt in zip(tr._to_device(wide), wide, BATCH_DTYPES):
+        assert t.dtype == dt and torch.equal(t, torch.from_numpy(w))
+
+
+def test_stored_type_feed_trains_bit_identical_to_the_widened_feed():
+    """Augmentation, AF3 blanking and dropout on: three steps and a
+    validation pass fed the stored types equal, to the bit, those fed the
+    same batches widened on the host."""
+    ds = _packed(6, 8, seed=5)
+    lam = loss.task_lambdas(1)
+    runs = []
+    for widen in (False, True):
+        tr = _trainer(exp_only_prob=0.5)
+        st = tr.init_state()
+        mets = []
+        for batch in data.batch_iterator(ds, 2, seed=9):
+            mets.append(tr.train_step(st, _widened(batch) if widen else batch, lam, 0.1))
+        feed = data.batch_iterator(ds, 4, shuffle=False, drop_last=False)
+        val = tr.run_validation(st, (_widened(b) if widen else b for b in feed), 1)
+        runs.append((tr, st, mets, val))
+    (tr, st, mets, val), (tr2, st2, mets2, val2) = runs
+    assert len(mets) == st.step == 3
+    for m, m2 in zip(mets, mets2):
+        assert m.keys() == m2.keys()
+        for k in m:
+            assert torch.equal(m[k], m2[k]), k
+    for (k, a), b in zip(tr.model.state_dict().items(), tr2.model.state_dict().values()):
+        assert torch.equal(a, b), k
+    for p, p2 in zip(tr.model.parameters(), tr2.model.parameters()):
+        s, s2 = st.optimizer.state[p], st2.optimizer.state[p2]
+        assert s.keys() == s2.keys() and all(torch.equal(s[k], s2[k]) for k in s)
+    assert torch.equal(st.grad_norms, st2.grad_norms)
+    assert val == val2
 
 
 def test_cli_train_one_epoch(tmp_path):
