@@ -286,12 +286,13 @@ def time_k1(torch, F, conv3d_in, g) -> tuple:
 
 
 def time_norms(torch, conv3d_in, _build, g, fw, step) -> dict:
-    """K2 and ``in_sums`` (and C 16) at the forward's widths, K4-K6 at a
-    step's; K2, K4, K6 to the bit,
+    """K2 at the forward's widths, ``in_sums`` (and C 16) at the forward's
+    and a step's, K4-K6 at a step's; K2, K4, K6 to the bit,
     ``in_sums`` and K5 within 1e-5 of the terms' magnitudes."""
     out = {k: [] for k in ("in_apply", "in_sums", "in_apply_ad", "in_bwd_stats",
                            "in_bwd_apply")}
-    want = {k: {int(s[2:]) for s in (fw if k in ("in_apply", "in_sums") else step).get(k, {})}
+    runs = {"in_apply": (fw,), "in_sums": (fw, step)}
+    want = {k: {int(s[2:]) for run in runs.get(k, (step,)) for s in run.get(k, {})}
             for k in out}
     want["in_sums"].add(16)
 
@@ -428,9 +429,9 @@ def time_stem(torch, F, g) -> list:
             wf = _fold_kernel_s2d(w9)
             conv = lambda: _unfold_s2d(F.conv3d(_fold_s2d(xin), wf, padding=2))  # noqa: E731
         else:
-            conv = lambda: F.conv3d(xin, w9, padding=4)  # noqa: E731
+            conv = lambda: F.conv3d(xin, w9, padding=4).permute(0, 2, 3, 4, 1)  # noqa: E731
         torch.backends.cudnn.allow_tf32 = True
-        lib = cuda_ms(torch, lambda: (conv().permute(0, 2, 3, 4, 1) + bias).to(torch.bfloat16))
+        lib = cuda_ms(torch, lambda: (conv() + bias).to(torch.bfloat16))
         torch.backends.cudnn.allow_tf32 = False
         rows.append(timed(
             torch, "K8", "x".join(map(str, shape[1:])), lambda: stem.stem_conv(x, packed, bias),

@@ -21,10 +21,10 @@ Kernel routing, in bf16 compute (``kernel_route``), site by site:
     (``mica_tpu/ops/wino_pallas.py:831-889``);
   * ``DualAttention``'s local conv: K3;
   * the stem's four Cin=1 convs at inference: K8;
-  * at inference, the InstanceNorm + ReLU that follow no K1 (the
-    DualAttention's after K3, the heads' two) and every average pool:
-    the statistics from ``in_sums``, then K2 in place for the norms
-    (``in_relu``, ``avg_pool``);
+  * the InstanceNorm + ReLU that follow no K1 (the DualAttention's after
+    K3, the heads' two) and every average pool: the statistics from
+    ``in_sums``, then for the norms K2 in place at inference, K4 in
+    training (``in_relu``, ``avg_pool``: ``avg_pool_ad`` at inference too);
   * the rest (``feat_conv``, FPN laterals and smooths, head conv2,
     the cascade corrections, the 1x1s) are library convs and matmuls, as
     they were XLA ops outside any Pallas kernel in the JAX package.
@@ -40,8 +40,10 @@ widths they do not take on the card.
 
 Training (``train=True``) keeps that routing through autograd functions
 with hand-written backward kernels: ``conv3d_in_relu_ad`` (K1 + K4
-forward; K5, K6, K1 for dx and a library weight-grad conv backward) and
-``depthwise_conv3_ad`` (K3 forward; K3 and K7 backward).  As in the JAX
+forward; K5, K6, K1 for dx and a library weight-grad conv backward),
+``in_relu_ad`` (``in_sums`` + K4 forward; K5, K6 backward),
+``avg_pool_ad`` (``in_sums`` forward) and ``depthwise_conv3_ad`` (K3
+forward; K3 and K7 backward).  As in the JAX
 package under training, the stem emits the compute dtype and the heads'
 fused conv1 is a library conv.  ``dropout_rate`` drives channel dropout
 (Dropout3d) at the reference's sites and the SE block's elementwise
@@ -63,8 +65,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import stem as stem_ops
-from ..ops.conv3d_in import (conv3d, conv3d_in_relu, conv3d_in_relu_ad, in_apply, in_stats,
-                              in_sums, k1_takes)
+from ..ops.conv3d_in import (avg_pool_ad, conv3d, conv3d_in_relu, conv3d_in_relu_ad, in_apply,
+                              in_relu_ad, in_stats, in_sums, k1_takes)
 from ..ops.depthwise import depthwise_conv3_ad
 
 # dropout units of one forward: the stem, (RDB, DualAttention, transition)
@@ -128,23 +130,24 @@ def _voxels(x: torch.Tensor) -> int:
 
 
 def in_relu(x: torch.Tensor, train: bool, kernels: bool) -> torch.Tensor:
-    """relu(instance_norm(x)).  At inference on the kernel route: the f32
-    sums from ``in_sums`` in ``instance_norm``'s variance form
-    (``in_stats``), then K2 over x in place, which the caller gives up; K2
-    rounds as the library expression does.  Otherwise the library ops,
-    which autograd records."""
-    if kernels and not train:
-        return in_apply(x, *in_stats(in_sums(x), _voxels(x)))
-    return torch.relu(instance_norm(x))
+    """relu(instance_norm(x)).  On the kernel route: the f32 sums from
+    ``in_sums`` in ``instance_norm``'s variance form (``in_stats``), then
+    at inference K2 over x in place, in training K4 (``in_relu_ad``: K5
+    and K6 backward), over x on the card; x is the caller's to give up.
+    K2 and K4 round as the library expression does.  The f32 route takes
+    the library ops."""
+    if not kernels:
+        return torch.relu(instance_norm(x))
+    if train:
+        return in_relu_ad(x)
+    return in_apply(x, *in_stats(in_sums(x), _voxels(x)))
 
 
-def avg_pool(x: torch.Tensor, train: bool, kernels: bool) -> torch.Tensor:
-    """``global_avg_pool``; at inference on the kernel route the f32 sum
-    from ``in_sums`` over the voxel count, cast to x's dtype."""
-    if kernels and not train:
-        b, c = x.shape[0], x.shape[-1]
-        return (in_sums(x)[:, 0] / _voxels(x)).to(x.dtype).reshape(b, 1, 1, 1, c)
-    return global_avg_pool(x)
+def avg_pool(x: torch.Tensor, kernels: bool) -> torch.Tensor:
+    """``global_avg_pool``; on the kernel route ``avg_pool_ad``: the f32
+    sum from ``in_sums`` over the voxel count, cast to x's dtype, with the
+    library's arithmetic for a backward."""
+    return avg_pool_ad(x) if kernels else global_avg_pool(x)
 
 
 class Dropout:
@@ -282,11 +285,12 @@ def _fold_s2d(x: torch.Tensor, s: int = 2) -> torch.Tensor:
 
 
 def _unfold_s2d(y: torch.Tensor, s: int = 2) -> torch.Tensor:
-    """(B, s^3*C, D/s, H/s, W/s), channels (pz, py, px, c) -> (B, C, D, H, W)."""
+    """(B, s^3*C, D/s, H/s, W/s), channels (pz, py, px, c) -> (B, D, H, W, C),
+    channels-last and contiguous."""
     b, sc, dz, hy, wx = y.shape
     c = sc // s ** 3
-    y = y.reshape(b, s, s, s, c, dz, hy, wx).permute(0, 4, 5, 1, 6, 2, 7, 3)
-    return y.reshape(b, c, dz * s, hy * s, wx * s)
+    y = y.reshape(b, s, s, s, c, dz, hy, wx).permute(0, 5, 1, 6, 2, 7, 3, 4)
+    return y.reshape(b, dz * s, hy * s, wx * s, c)
 
 
 def _fold_kernel_s2d(w: torch.Tensor, s: int = 2) -> torch.Tensor:
@@ -362,8 +366,9 @@ class MultiScaleInput(nn.Module):
         if all(n % 2 == 0 for n in xin.shape[2:]):
             y = _unfold_s2d(F.conv3d(_fold_s2d(xin), _fold_kernel_s2d(w), padding=2))
         else:
-            y = F.conv3d(xin, w, padding=4)
-        return y.permute(0, 2, 3, 4, 1).to(dt) + b.to(dt)
+            y = F.conv3d(xin, w, padding=4).permute(0, 2, 3, 4, 1)
+        # contiguous channels-last, as the pool after it (``in_sums``) takes
+        return y.to(dt, memory_format=torch.contiguous_format) + b.to(dt)
 
     def forward(self, exp_map: torch.Tensor, af: Optional[torch.Tensor], rate: float = 0.0,
                 drop: Optional[Dropout] = None, train: bool = False,
@@ -371,7 +376,7 @@ class MultiScaleInput(nn.Module):
         if drop is not None:
             exp_map = drop.channels(exp_map, rate)
         x_exp = self.stem(exp_map, train, kernels)
-        a = torch.relu(self.exp_attention["1"](avg_pool(x_exp, train, kernels)))
+        a = torch.relu(self.exp_attention["1"](avg_pool(x_exp, kernels)))
         a = torch.sigmoid(self.exp_attention["3"](a))
         x_exp_enh = x_exp * a
         exp_only = self.exp_downsizing(x_exp_enh)
@@ -395,7 +400,7 @@ class SEBlock(nn.Module):
     def forward(self, x: torch.Tensor, rate: float = 0.0, drop: Optional[Dropout] = None,
                 train: bool = False, kernels: bool = True) -> torch.Tensor:
         b, c = x.shape[0], x.shape[-1]
-        y = avg_pool(x, train, kernels).reshape(b, c)
+        y = avg_pool(x, kernels).reshape(b, c)
         y = torch.relu(self.fc["0"](y))
         if drop is not None:
             y = drop.elements(y, rate)
@@ -436,7 +441,7 @@ class DualAttention(nn.Module):
         lc = self.local_attn["0"]
         conv = depthwise_conv3_ad if kernels else depthwise_library
         local = in_relu(conv(x, lc.weight, lc.bias), train, kernels)
-        g = torch.relu(self.global_attn["1"](avg_pool(x, train, kernels)))
+        g = torch.relu(self.global_attn["1"](avg_pool(x, kernels)))
         if drop is not None:
             local = drop.channels(local, rate)
             g = drop.channels(g, rate)
@@ -501,13 +506,13 @@ class TaskHead(nn.Module):
              kernels: bool = True) -> torch.Tensor:
         """IN -> relu -> conv2 -> IN -> relu -> dropout -> calibration ->
         final 1x1 in f32.  ``out_slice`` crops before the 1x1, which is
-        exact.  At inference on the kernel route h1 is overwritten
+        exact.  On the kernel route on the card h1 is overwritten
         (``in_relu``)."""
         x = in_relu(h1, train, kernels)
         x = in_relu(self.conv2(x), train, kernels)
         if drop is not None:
             x = drop.channels(x, rate)
-        cal = torch.relu(self.calibration["1"](avg_pool(x, train, kernels)))
+        cal = torch.relu(self.calibration["1"](avg_pool(x, kernels)))
         if drop is not None:
             cal = drop.channels(cal, rate)
         x = x * torch.sigmoid(self.calibration["4"](cal))

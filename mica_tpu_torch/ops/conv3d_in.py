@@ -22,11 +22,11 @@ does: f32 statistics in the E[x^2]-E[x]^2 form, variance clamped at 0,
 apply in the compute dtype.
 
 ``in_sums`` (Triton) gives the same per-(batch, channel) sums of a bf16
-tensor that exists already, for the inference forward's other
-InstanceNorms (then K2) and its average pools: one read of 2 bytes an
-element, partials of voxel chunks summed in a fixed order by K5's second
-kernel, with chunks chosen without regard to the batch, so a sample's
-bits do not depend on it (``in_sums_plan``).
+tensor that exists already, for the bf16 forward's other InstanceNorms
+(then K2 at inference, K4 in training) and its average pools: one read
+of 2 bytes an element, partials of voxel chunks summed in a fixed order
+by K5's second kernel, with chunks chosen without regard to the batch,
+so a sample's bits do not depend on it (``in_sums_plan``).
 
 The training path (``conv3d_in_relu_ad``, the ``Conv3dInReluFn`` autograd
 function) adds three Triton kernels, the passes of the reference's
@@ -39,6 +39,11 @@ custom VJP ``wino_conv3d_in_relu_pallas_ad``:
     fixed order (``k5_plan``);
   * K6 ``in_bwd_apply``: dc = s·(g − m1 − x̂·m2) (replaces
     ``_in_bwd_apply_T``).
+
+The same passes without the conv train the InstanceNorm + ReLU of a
+tensor that exists already (``in_relu_ad``, ``InReluFn``: ``in_sums``
+and K4 forward, K5 and K6 backward), and ``avg_pool_ad`` (``AvgPoolFn``)
+the average pool: ``in_sums`` forward, g / n broadcast backward.
 
 Weights are in torch layout, (Co, sum Ci, 3, 3, 3).  A wrapper given CPU
 tensors runs the plain version; given CUDA tensors it launches its kernel
@@ -84,7 +89,8 @@ def conv3d_plain(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] = Non
                  with_stats: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain version of K1: the same products in f32 (the weight rounded
     to the parts' dtype first, as the kernel takes it), bias added in f32,
-    statistics of that f32 value, output cast to the parts' dtype."""
+    statistics of that f32 value, output cast to the parts' dtype,
+    contiguous (B, D, H, W, Co) as the kernel writes it."""
     parts = _as_parts(parts)
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
     dt = x.dtype
@@ -95,7 +101,7 @@ def conv3d_plain(parts, weight: torch.Tensor, bias: Optional[torch.Tensor] = Non
     stats = None
     if with_stats:
         stats = torch.stack([y.sum(dim=(1, 2, 3)), (y * y).sum(dim=(1, 2, 3))], dim=1)
-    return y.to(dt), stats
+    return y.to(dt, memory_format=torch.contiguous_format), stats
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -915,6 +921,27 @@ def _ncdhw(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 4, 1, 2, 3)
 
 
+def _voxels(t: torch.Tensor) -> int:
+    return t.shape[1] * t.shape[2] * t.shape[3]
+
+
+def _in_relu_forward(c: torch.Tensor, stats: torch.Tensor, eps: float):
+    """``in_stats`` from c's (B, 2, C) sums, then K4: (y, x̂, the (B, C)
+    f32 scale); on the card y is written over c."""
+    mean, scale = in_stats(stats, _voxels(c), eps)
+    y, xh = in_apply_ad(c, mean, scale)
+    return y, xh, scale
+
+
+def _in_relu_backward(xh: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """K5, then m1, m2 = its sums / n, then K6: the InstanceNorm + ReLU's
+    input gradient dc = s·(g − m1 − x̂·m2)."""
+    dy = dy.to(xh.dtype).contiguous()
+    n = _voxels(xh)
+    gstats = in_bwd_stats(xh, dy)
+    return in_bwd_apply(xh, dy, gstats[:, 0] / n, gstats[:, 1] / n, scale)
+
+
 class Conv3dInReluFn(torch.autograd.Function):
     """relu(instance_norm(conv3x3(concat(parts)) + bias)) with the custom
     backward of ``wino_conv3d_in_relu_pallas_ad``:
@@ -934,19 +961,15 @@ class Conv3dInReluFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, weight, bias, eps, *parts):
-        out, stats = conv3d(list(parts), weight, bias, with_stats=True)
-        mean, scale = in_stats(stats, out.shape[1] * out.shape[2] * out.shape[3], eps)
-        y, xh = in_apply_ad(out, mean, scale)
+        y, xh, scale = _in_relu_forward(*conv3d(list(parts), weight, bias, with_stats=True),
+                                        eps)
         ctx.save_for_backward(weight, xh, scale, *parts)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         weight, xh, scale, *parts = ctx.saved_tensors
-        dy = dy.to(xh.dtype).contiguous()
-        n = xh.shape[1] * xh.shape[2] * xh.shape[3]
-        gstats = in_bwd_stats(xh, dy)
-        dc = in_bwd_apply(xh, dy, gstats[:, 0] / n, gstats[:, 1] / n, scale)
+        dc = _in_relu_backward(xh, scale, dy)
         dparts = [None] * len(parts)
         if any(ctx.needs_input_grad[3:]):
             dx, _ = conv3d([dc], weight.flip(2, 3, 4).transpose(0, 1), None, with_stats=False)
@@ -970,3 +993,61 @@ def conv3d_in_relu_ad(parts: Sequence[torch.Tensor], weight: torch.Tensor,
     """Differentiable ``conv3d_in_relu`` (K1, K4 forward; K5, K6, K1 and a
     library weight-grad backward); matches ``wino_conv3d_in_relu_pallas_ad``."""
     return Conv3dInReluFn.apply(weight, bias, eps, *_as_parts(parts))
+
+
+class InReluFn(torch.autograd.Function):
+    """relu(instance_norm(x)) of a tensor that exists already:
+    ``Conv3dInReluFn`` without the conv.
+
+      forward   ``in_sums`` -> ``in_stats`` -> K4, saving x̂ and the
+                (B, C) f32 scale.  On the card K4 writes y over x, which
+                is marked dirty: at each of the model's sites x is a fresh
+                tensor that no node saves (K3's output, a sum with a bias),
+                so nothing is cloned;
+      backward  K5 -> m1, m2 = sums / n -> K6 gives dx.
+
+    On the card x must be contiguous bf16 (the wrappers raise); on the CPU
+    the plain versions run at any dtype.  ``apply(x, eps)``."""
+
+    @staticmethod
+    def forward(ctx, x, eps):
+        y, xh, scale = _in_relu_forward(x, in_sums(x), eps)
+        if y is x:
+            ctx.mark_dirty(x)
+        ctx.save_for_backward(xh, scale)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        xh, scale = ctx.saved_tensors
+        return _in_relu_backward(xh, scale, dy), None
+
+
+def in_relu_ad(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Differentiable relu(instance_norm(x)) over (D, H, W) of a
+    (B, D, H, W, C) tensor (``in_sums``, K4; K5, K6); on the card x is
+    overwritten with the result."""
+    return InReluFn.apply(x, eps)
+
+
+class AvgPoolFn(torch.autograd.Function):
+    """The mean over (D, H, W) of a (B, D, H, W, C) tensor, keepdims, in
+    its dtype: ``in_sums(x)[:, 0] / n`` cast to that dtype forward (the
+    inference route's formula); backward dx = (g in f32 / n) cast to x's
+    dtype and broadcast over the voxels, the arithmetic of autograd through
+    the library's f32 mean and casts, so the same bits."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.shape, ctx.n = x.shape, _voxels(x)
+        b, c = x.shape[0], x.shape[-1]
+        return (in_sums(x)[:, 0] / ctx.n).to(x.dtype).reshape(b, 1, 1, 1, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.float() / ctx.n).to(g.dtype).expand(ctx.shape)
+
+
+def avg_pool_ad(x: torch.Tensor) -> torch.Tensor:
+    """Differentiable average pool over the voxels (``in_sums`` forward)."""
+    return AvgPoolFn.apply(x)

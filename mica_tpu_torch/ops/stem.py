@@ -191,10 +191,11 @@ def unpack_weight(packed: torch.Tensor, c: int) -> List[torch.Tensor]:
 
 def stem_conv_plain(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Plain version of K8: the 9^3 SAME conv of the upcast input with the
-    four upcast kernels zero-embedded, the f32 bias, one cast to x's dtype."""
+    four upcast kernels zero-embedded, the f32 bias, one cast to x's dtype
+    into a contiguous (B, D, H, W, C), as the kernel writes it."""
     w9 = combine_weights(unpack_weight(packed, bias.shape[0])).float()
     y = F.conv3d(x.float()[:, None], w9, bias.float(), padding=K // 2)
-    return y.permute(0, 2, 3, 4, 1).to(x.dtype)
+    return y.permute(0, 2, 3, 4, 1).to(x.dtype, memory_format=torch.contiguous_format)
 
 
 def stem_conv(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:

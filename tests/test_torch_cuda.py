@@ -11,8 +11,9 @@ the output is 2^-9 relative), statistics 1e-4 relative (f32 sums in
 another order, with atomics).  K4 and K6 are bitwise equal to their bf16
 plain versions; K5's and K7's f32 sums stay within 1e-5 of the sum of
 the terms' magnitudes, and both are equal to the bit from call to call.
-``Conv3dInReluFn``'s output and gradients stay
-within 1e-2 relative L2 of the same function run on the CPU.  K8 stays
+``Conv3dInReluFn``'s and ``InReluFn``'s outputs and gradients stay
+within 1e-2 relative L2 of the same function run on the CPU, and
+``AvgPoolFn``'s gradient equals it.  K8 stays
 within 1e-2 of the largest reference value (f32 sums in another order, one
 bf16 rounding); K9 and K10 are exact, and K9 leaves a window
 that would leave the volume unwritten; device candidate extraction equals
@@ -291,7 +292,7 @@ def test_wrappers_refuse_f32_on_card(gen):
 
 
 @pytest.mark.parametrize("shape,c", [((2, 4, 6, 8), c) for c in (32, 192, 512)]
-                         + [(ENGINE_BATCH, c) for c in (32, 64, 128, 256, 512)])
+                         + [(ENGINE_BATCH, c) for c in (16, 32, 64, 128, 256, 512)])
 def test_in_apply_ad_matches_plain_bitwise(gen, shape, c):
     """Bitwise against the bf16 plain version; y and x^ within 1e-2 of the
     largest |x^| of the f32 one."""
@@ -313,7 +314,7 @@ def test_in_apply_ad_matches_plain_bitwise(gen, shape, c):
 
 
 @pytest.mark.parametrize("shape", [(2, 4, 6, 8, 64), (3, 5, 7, 9, 192), (1, 16, 16, 16, 32)]
-                         + [ENGINE_BATCH + (c,) for c in (32, 64, 128, 256, 512)])
+                         + [ENGINE_BATCH + (c,) for c in (16, 32, 64, 128, 256, 512)])
 def test_in_bwd_kernels_match_plain(gen, shape):
     """K5 against its f32 sums at 1e-5 of the terms' magnitudes, equal to
     the bit from call to call; K6 bitwise against its bf16 plain version
@@ -633,6 +634,48 @@ def test_autograd_fns_launch_their_kernels(gen):
     assert torch.count_nonzero(b.grad) == 0 and x.grad.shape == x.shape
 
 
+@pytest.mark.parametrize("shape", [(2, 5, 6, 7, 24)]
+                         + [ENGINE_BATCH + (c,) for c in (32, 64, 128, 256)])
+def test_in_relu_ad_and_avg_pool_ad_match_the_cpu(gen, shape):
+    """``InReluFn`` (``in_sums``, K4 over x; K5, K6) and ``AvgPoolFn`` on
+    the card against the same functions on the CPU, where every wrapper
+    runs its plain version, from the same bf16 input and upstream
+    gradients: the norm's y and dx within 1e-2 relative L2 (``in_sums``
+    adds in another order, so roundings flip), the pool within 1e-2 of its
+    largest value and its dx equal to the bit; one launch of each kernel,
+    y written over x; a non-contiguous or f32 input raises."""
+    from mica_tpu_torch.ops import conv3d_in
+
+    x = (torch.randn(*shape, device="cuda", generator=gen) * 2 + 0.5).to(torch.bfloat16)
+    dy = torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+    gp = torch.randn(shape[0], 1, 1, 1, shape[-1], device="cuda", generator=gen).to(torch.bfloat16)
+    got, launched = [], {}
+    for dev in ("cuda", "cpu"):
+        before = dict(conv3d_in.launches)
+        xd = x.to(dev).clone().requires_grad_()
+        c = xd * 1                    # a fresh non-leaf, as the model's sites give
+        y = conv3d_in.in_relu_ad(c)
+        pool = conv3d_in.avg_pool_ad(xd)
+        if dev == "cuda":
+            assert y.data_ptr() == c.data_ptr()
+        dx, = torch.autograd.grad(y, xd, dy.to(dev))
+        dxp, = torch.autograd.grad(pool, xd, gp.to(dev))
+        got.append([t.detach().cpu() for t in (y, dx, pool, dxp)])
+        launched[dev] = {k: conv3d_in.launches[k] - before[k] for k in before}
+    assert launched["cuda"] == {"conv3d_stats": 0, "in_apply": 0, "in_apply_ad": 1,
+                                "in_bwd_stats": 1, "in_bwd_apply": 1, "in_sums": 2}
+    assert set(launched["cpu"].values()) == {0}
+    (y, dx, pool, dxp), (y_c, dx_c, pool_c, dxp_c) = got
+    for a, want in ((y, y_c), (dx, dx_c)):
+        assert (a.float() - want.float()).norm() <= 1e-2 * want.float().norm()
+    _close(pool, pool_c)
+    assert torch.equal(dxp, dxp_c)
+    with pytest.raises(TypeError):
+        conv3d_in.in_relu_ad(x.float())
+    with pytest.raises(TypeError):
+        conv3d_in.in_relu_ad(x.transpose(1, 2))
+
+
 def _stem_inputs(gen, shape, c, offset=0):
     flat = torch.randn(offset + int(torch.tensor(shape).prod()), device="cuda", generator=gen)
     x = flat.to(torch.bfloat16)[offset:].view(*shape)
@@ -943,7 +986,9 @@ def test_predict_volume_base16_bf16_takes_k1_where_it_takes_the_widths(gen):
 def test_trainer_step_base16_bf16_on_the_card(gen):
     """A base-16 bf16 ``Trainer`` step on the card: finite, and K1 launches
     only at the sites it takes (5 forward, 3 recomputed RDB sites, 5 dx),
-    with K4 at 8 and K5, K6 at 5."""
+    with K4 at those 8 and at the 9 norms that follow no K1, forward and
+    recomputed (26), K5, K6 at 5 + 9, ``in_sums`` at those 9 norms and the
+    10 pools, forward and, but for the stem's pool, recomputed (37)."""
     import numpy as np
 
     from mica_tpu_torch.ops import conv3d_in
@@ -957,8 +1002,8 @@ def test_trainer_step_base16_bf16_on_the_card(gen):
     met = tr.train_step(state, batch, (1.0, 1.0, 1.0), 0.01)
     assert np.isfinite(float(met["total_loss"]))
     assert {k: conv3d_in.launches[k] - before[k] for k in before} == {
-        "conv3d_stats": 13, "in_apply": 0, "in_apply_ad": 8, "in_bwd_stats": 5,
-        "in_bwd_apply": 5, "in_sums": 0}
+        "conv3d_stats": 13, "in_apply": 0, "in_apply_ad": 26, "in_bwd_stats": 14,
+        "in_bwd_apply": 14, "in_sums": 37}
 
 
 def test_merizo_on_the_card_matches_the_cpu(gen):

@@ -32,11 +32,14 @@ BASE, BATCH, WIN = 64, 8, 64          # MICA's published width, the engine's bat
 MAP = 160                             # voxels an axis of the prediction map: 4 cores of 48
 ENGINE = dict(batch_size=BATCH, dtype=torch.bfloat16, base_filters=BASE, core=48, halo=8)
 PROBS = ("backbone_probability", "carbon_alpha_probability", "amino_acid_probability")
-INFERENCE_ONLY = ("in_apply", "in_sums", "stem9", "gather_windows", "scatter_cores")
+INFERENCE_ONLY = ("in_apply", "stem9", "gather_windows", "scatter_cores")
 # a training step at base 64 with recomputation: K1 12 forward + 9
-# recomputed + 12 dx; K3 3 forward + 3 recomputed + 3 dx
-TRAIN_PER_STEP = {"conv3d_stats": 33, "in_apply_ad": 21, "in_bwd_stats": 12,
-                  "in_bwd_apply": 12, "depthwise3": 9, "depthwise3_grads": 3}
+# recomputed + 12 dx; K4 at those 12 + 9 and at the 9 norms that follow no
+# K1, forward and recomputed, 18; K5, K6 12 + 9; ``in_sums`` at those 9
+# norms and the 10 pools, 19 forward + 18 recomputed (all but the stem's
+# pool); K3 3 forward + 3 recomputed + 3 dx
+TRAIN_PER_STEP = {"conv3d_stats": 33, "in_apply_ad": 39, "in_bwd_stats": 21,
+                  "in_bwd_apply": 21, "in_sums": 37, "depthwise3": 9, "depthwise3_grads": 3}
 # Limits of the bf16 card gradient against the f32 CPU gradient: (cosine
 # of the whole vector, worst cosine of a tensor above 1e-4 of the largest
 # reference norm) at weights initialised from the seed, and the whole
@@ -86,8 +89,8 @@ DICE_GAIN_MIN = 0.1         # held-out backbone Dice over the initial weights'
 DEMO_COVERAGE_FLOOR = 0.9
 # launches at base 16, where K1 takes 5 of the 13 sites: a training step
 # (recomputation on) and an inference forward
-LEARNED_PER_STEP = {"conv3d_stats": 13, "in_apply_ad": 8, "in_bwd_stats": 5, "in_bwd_apply": 5,
-                    "depthwise3": 9, "depthwise3_grads": 3}
+LEARNED_PER_STEP = {"conv3d_stats": 13, "in_apply_ad": 26, "in_bwd_stats": 14,
+                    "in_bwd_apply": 14, "in_sums": 37, "depthwise3": 9, "depthwise3_grads": 3}
 LEARNED_PER_FORWARD = {"conv3d_stats": 5, "in_apply": 14, "in_sums": 19, "depthwise3": 3,
                        "stem9": 1}
 # The multi-GPU test, limits set before its first card run.  World 2

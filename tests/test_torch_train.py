@@ -360,10 +360,11 @@ def test_bf16_gradient_no_farther_from_f32_than_jax(jax_params):
 
 
 def test_custom_backward_matches_autograd_of_the_plain_forward(monkeypatch):
-    """On the CPU the inference forward is plain PyTorch (K1/K2/K3's plain
-    versions), so autograd differentiates it independently of the custom
-    backward (K4-K7's plain versions, the dx conv, db = 0) that
-    ``train=True`` takes: every gradient agrees to 1e-4 relative L2
+    """On the CPU the inference forward is plain PyTorch (K1/K2/K3's and
+    ``in_sums``'s plain versions), so autograd differentiates it
+    independently of the custom backward (``Conv3dInReluFn``,
+    ``InReluFn``, ``AvgPoolFn`` and K3's: K4-K7's plain versions, the dx
+    conv, db = 0, g / n) that ``train=True`` takes: every gradient agrees to 1e-4 relative L2
     (measured 6e-6; the stem's and heads' training-mode casts are
     identities in f32).  The kernel route is forced, since f32 takes the
     library route by default (``kernel_route``), at every site, whatever
