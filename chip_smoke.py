@@ -8,8 +8,9 @@ K1's, K3's, K7's and K8's ``-Xptxas -v`` report.  Counts each kernel's
 launches by site on the main path: ``predict_map`` (bf16, base 64, batch
 8, core 48, halo 8, a docked model's AF3 words) on a 160^3 map from
 ``benchmark.gen``, and a base-64 ``Trainer`` step (batch 8 of 64^3).
-Times each kernel at those sites (K9, K10 at that map's frame, K11-K13
-at the scripts' shapes): ms a launch, its plan, its bound (operations at
+Times each kernel at those sites (K4-K6 with the step's dropout table
+where it applies one, K9, K10 at that map's frame, K11-K13 at the
+scripts' shapes): ms a launch, its plan, its bound (operations at
 the bf16 tensor-core peak for K1 and K8, the f32 CUDA-core peak for the
 rest, or bytes at the HBM rate, whichever is longer), the ms of its plain
 version and of a library call, each output held against the plain one's
@@ -56,12 +57,18 @@ def c_site(x, *_, **__) -> str:
     return f"C={x.shape[-1]}"
 
 
+def drop_site(x, *_, drop=None, **__) -> str:
+    """K4-K6's site: the width, and "+drop" where a channel dropout's table
+    is applied."""
+    return c_site(x) + ("" if drop is None else "+drop")
+
+
 # kernel: (module of mica_tpu_torch.ops, its wrapper, a launch's site from the wrapper's arguments)
 WRAPPERS = {
     "conv3d_stats": ("conv3d_in", "conv3d",
                      lambda parts, w, *_, **__: k1_site([p.shape[-1] for p in parts], w.shape[0])),
-    **{k: ("conv3d_in", k, c_site)
-       for k in ("in_apply", "in_sums", "in_apply_ad", "in_bwd_stats", "in_bwd_apply")},
+    **{k: ("conv3d_in", k, c_site) for k in ("in_apply", "in_sums")},
+    **{k: ("conv3d_in", k, drop_site) for k in ("in_apply_ad", "in_bwd_stats", "in_bwd_apply")},
     "depthwise3": ("depthwise", "depthwise_conv3", c_site),
     "depthwise3_grads": ("depthwise", "depthwise_grads", c_site),
     "stem9": ("stem", "stem_conv", lambda x, *_, **__: "x".join(map(str, x.shape[1:]))),
@@ -287,30 +294,37 @@ def time_k1(torch, F, conv3d_in, g) -> tuple:
 
 def time_norms(torch, conv3d_in, _build, g, fw, step) -> dict:
     """K2 at the forward's widths, ``in_sums`` (and C 16) at the forward's
-    and a step's, K4-K6 at a step's; K2, K4, K6 to the bit,
+    and a step's, K4-K6 at a step's, with the epoch-0 dropout's keep table
+    where the step applies one ("+drop"); K2, K4, K6 to the bit,
     ``in_sums`` and K5 within 1e-5 of the terms' magnitudes."""
+    from mica_tpu_torch.models.mica import dropout_rate_for_epoch, keep_prob
+
     out = {k: [] for k in ("in_apply", "in_sums", "in_apply_ad", "in_bwd_stats",
                            "in_bwd_apply")}
     runs = {"in_apply": (fw,), "in_sums": (fw, step)}
-    want = {k: {int(s[2:]) for run in runs.get(k, (step,)) for s in run.get(k, {})}
-            for k in out}
-    want["in_sums"].add(16)
+    want = {k: {s for run in runs.get(k, (step,)) for s in run.get(k, {})} for k in out}
+    want["in_sums"].add("C=16")
+    rate = dropout_rate_for_epoch(0)
 
     def table(c):
         return torch.rand(BATCH, c, device="cuda", generator=g) * 0.5 + 0.5
 
-    def plan(p, kernels):
-        main, summed = next(v[:2] for k, v in kernels.items() if k[0] == p)
+    def plan(p, kernels, drop=False):
+        # K5's keys end in (DROP, the table's alignment), ``in_sums``'s do not
+        main, summed = next(v[:2] for k, v in kernels.items()
+                            if k[0] == p and (len(k) < 5 or k[4] == drop))
         return (f"plan tile {p.block_s} x {p.block_c}, chunk {p.chunk} voxels, {p.programs} "
                 f"programs; {main.n_regs} and {summed.n_regs} registers, {main.n_spills} and "
                 f"{summed.n_spills} spills")
 
-    for c in sorted(set().union(*want.values())):
+    for c in sorted({int(s[2:].split("+")[0]) for v in want.values() for s in v}):
         x = torch.randn(*SHAPE, c, device="cuda", generator=g).to(torch.bfloat16)
         n, sms = x.numel(), _build.sm_count(x.device)
         mean, scale = table(c) - 0.75, table(c)
         m16, s16 = (t.to(torch.bfloat16)[:, None, None, None] for t in (mean, scale))
-        if c in want["in_apply"]:
+        keep = torch.rand(BATCH, c, device="cuda", generator=g) >= rate
+        drops = ((f"C={c}", None), (f"C={c}+drop", (keep, keep_prob(rate, torch.bfloat16))))
+        if f"C={c}" in want["in_apply"]:
             y = x.clone()             # K2 and the library's ops work in place
             out["in_apply"].append(timed(
                 torch, "K2", f"C={c}", lambda: conv3d_in.in_apply(y, mean, scale),
@@ -318,7 +332,7 @@ def time_norms(torch, conv3d_in, _build, g, fw, step) -> dict:
                 lambda: y.sub_(m16).mul_(s16).relu_(), 2.0 * n, 4.0 * n + 8.0 * BATCH * c,
                 reps=5, got=conv3d_in.in_apply(x.clone(), mean, scale)))
             del y
-        if c in want["in_sums"]:
+        if f"C={c}" in want["in_sums"]:
             out["in_sums"].append(timed(
                 torch, "in_sums", f"C={c}", lambda: conv3d_in.in_sums(x),
                 lambda: conv3d_in.in_sums_plain(x),
@@ -328,36 +342,44 @@ def time_norms(torch, conv3d_in, _build, g, fw, step) -> dict:
                 mag=conv3d_in.in_sums_plain(x.abs()),
                 extra=lambda r: plan(conv3d_in.in_sums_plan(x.shape, sms),
                                      conv3d_in.in_sums_kernels)))
-        if c in want["in_apply_ad"]:
-            buf = x.clone()
-            out["in_apply_ad"].append(timed(
-                torch, "K4", f"C={c}", lambda: conv3d_in.in_apply_ad(buf, mean, scale),
-                lambda: conv3d_in.in_apply_ad_plain(x, mean, scale),
-                lambda: torch.relu(torch.sub(x, m16).mul_(s16)), 3.0 * n,
-                6.0 * n + 8.0 * BATCH * c, got=conv3d_in.in_apply_ad(x.clone(), mean, scale)))
-            del buf
-        if c in want["in_bwd_stats"] | want["in_bwd_apply"]:
+        # K4-K6: the eager dropout (``drop_plain``) in their library chains;
+        # a table adds its bytes and a product an element
+        for site, d in drops:
+            if site not in want["in_apply_ad"] | want["in_bwd_stats"] | want["in_bwd_apply"]:
+                continue
+            on, tb = d is not None, 0 if d is None else BATCH * c
+            if site in want["in_apply_ad"]:
+                buf = x.clone()
+                out["in_apply_ad"].append(timed(
+                    torch, "K4", site, lambda: conv3d_in.in_apply_ad(buf, mean, scale, drop=d),
+                    lambda: conv3d_in.in_apply_ad_plain(x, mean, scale, d),
+                    lambda: conv3d_in.drop_plain(torch.relu(torch.sub(x, m16).mul_(s16)), d),
+                    (3.0 + on) * n, 6.0 * n + 8.0 * BATCH * c + tb,
+                    got=conv3d_in.in_apply_ad(x.clone(), mean, scale, drop=d)))
+                del buf
+            if site not in want["in_bwd_stats"] | want["in_bwd_apply"]:
+                continue
             dy = torch.randn(*SHAPE, c, device="cuda", generator=g).to(torch.bfloat16)
 
             def lib5():
-                gg = torch.where(x > 0, dy, 0)
+                gg = torch.where(x > 0, conv3d_in.drop_plain(dy, d), 0)
                 return torch.stack([gg.sum(dim=(1, 2, 3), dtype=torch.float32),
                                     (gg * x).sum(dim=(1, 2, 3), dtype=torch.float32)], 1)
 
             out["in_bwd_stats"].append(timed(
-                torch, "K5", f"C={c}", lambda: conv3d_in.in_bwd_stats(x, dy),
-                lambda: conv3d_in.in_bwd_stats_plain(x, dy), lib5, 4.0 * n,
-                4.0 * n + 8.0 * BATCH * c, tol=1e-5,
-                mag=conv3d_in.in_bwd_stats_plain(x.abs(), dy.abs()),
-                extra=lambda r: plan(conv3d_in.k5_plan(x.shape, sms), conv3d_in.k5_kernels)))
-            st = conv3d_in.in_bwd_stats(x, dy)
+                torch, "K5", site, lambda: conv3d_in.in_bwd_stats(x, dy, drop=d),
+                lambda: conv3d_in.in_bwd_stats_plain(x, dy, d), lib5, (4.0 + on) * n,
+                4.0 * n + 8.0 * BATCH * c + tb, tol=1e-5,
+                mag=conv3d_in.in_bwd_stats_plain(x.abs(), dy.abs(), d),
+                extra=lambda r: plan(conv3d_in.k5_plan(x.shape, sms), conv3d_in.k5_kernels, on)))
+            st = conv3d_in.in_bwd_stats(x, dy, drop=d)
             args = (x, dy, st[:, 0] / WIN ** 3, st[:, 1] / WIN ** 3, scale)
             e = [t.to(torch.bfloat16)[:, None, None, None] for t in args[-1:] + args[2:4]]
             out["in_bwd_apply"].append(timed(
-                torch, "K6", f"C={c}", lambda: conv3d_in.in_bwd_apply(*args),
-                lambda: conv3d_in.in_bwd_apply_plain(*args),
-                lambda: e[0] * (torch.where(x > 0, dy, 0) - e[1] - x * e[2]), 5.0 * n,
-                6.0 * n + 12.0 * BATCH * c))
+                torch, "K6", site, lambda: conv3d_in.in_bwd_apply(*args, drop=d),
+                lambda: conv3d_in.in_bwd_apply_plain(*args, drop=d),
+                lambda: e[0] * (torch.where(x > 0, conv3d_in.drop_plain(dy, d), 0) - e[1]
+                                - x * e[2]), (5.0 + on) * n, 6.0 * n + 12.0 * BATCH * c + tb))
             del dy, args
         del x
         torch.cuda.empty_cache()

@@ -48,9 +48,13 @@ package under training, the stem emits the compute dtype and the heads'
 fused conv1 is a library conv.  ``dropout_rate`` drives channel dropout
 (Dropout3d) at the reference's sites and the SE block's elementwise
 dropout; the heads use twice the rate, the transitions and FPN smooths
-half.  ``MICA(remat=True)`` recomputes each RDB, each DualAttention and
-the heads in the backward (``torch.utils.checkpoint``), the JAX
-package's ``remat_scope="blocks"``.
+half.  Where a channel dropout follows a K4 (the RDB convs, the
+transitions, the DualAttention's norm, the heads' second norm) it is
+folded into K4 forward and K5, K6 backward (``Dropout.table``); the
+other sites, and those on the library route, apply it eagerly.
+``MICA(remat=True)`` recomputes each RDB, each DualAttention and the
+heads in the backward (``torch.utils.checkpoint``), the JAX package's
+``remat_scope="blocks"``.
 """
 
 from __future__ import annotations
@@ -129,18 +133,23 @@ def _voxels(x: torch.Tensor) -> int:
     return x.shape[1] * x.shape[2] * x.shape[3]
 
 
-def in_relu(x: torch.Tensor, train: bool, kernels: bool) -> torch.Tensor:
-    """relu(instance_norm(x)).  On the kernel route: the f32 sums from
-    ``in_sums`` in ``instance_norm``'s variance form (``in_stats``), then
-    at inference K2 over x in place, in training K4 (``in_relu_ad``: K5
-    and K6 backward), over x on the card; x is the caller's to give up.
-    K2 and K4 round as the library expression does.  The f32 route takes
-    the library ops."""
+def in_relu(x: torch.Tensor, train: bool, kernels: bool, drop: Optional["Dropout"] = None,
+            rate: float = 0.0) -> torch.Tensor:
+    """relu(instance_norm(x)), then ``drop``'s channel dropout at ``rate``.
+    On the kernel route: the f32 sums from ``in_sums`` in
+    ``instance_norm``'s variance form (``in_stats``), then at inference K2
+    over x in place, in training K4 (``in_relu_ad``: K5 and K6 backward,
+    the dropout folded into all three), over x on the card; x is the
+    caller's to give up.  K2 and K4 round as the library expression does.
+    The f32 route takes the library ops."""
+    if kernels and train:
+        table = _table(drop, rate, x.shape[0], x.shape[-1], x)
+        return _dropped(in_relu_ad(x, drop=table), drop, rate, table)
     if not kernels:
-        return torch.relu(instance_norm(x))
-    if train:
-        return in_relu_ad(x)
-    return in_apply(x, *in_stats(in_sums(x), _voxels(x)))
+        y = torch.relu(instance_norm(x))
+    else:
+        y = in_apply(x, *in_stats(in_sums(x), _voxels(x)))
+    return _dropped(y, drop, rate, None)
 
 
 def avg_pool(x: torch.Tensor, kernels: bool) -> torch.Tensor:
@@ -170,26 +179,55 @@ class Dropout:
         self.rows = rows
         self._gen: Optional[torch.Generator] = None
 
+    def _keep(self, shape, rate: float, device) -> torch.Tensor:
+        """The next mask of ``shape`` from the unit's generator."""
+        if self._gen is None:
+            self._gen = torch.Generator(device=device).manual_seed(self.seed)
+        if self.rows is None:
+            return torch.rand(shape, generator=self._gen, device=device) >= rate
+        first, total = self.rows
+        return torch.rand((total,) + tuple(shape[1:]), generator=self._gen,
+                          device=device)[first:first + shape[0]] >= rate
+
     def _drop(self, x: torch.Tensor, shape, rate: float) -> torch.Tensor:
         if rate == 0.0:
             return x
-        if self._gen is None:
-            self._gen = torch.Generator(device=x.device).manual_seed(self.seed)
-        if self.rows is None:
-            keep = torch.rand(shape, generator=self._gen, device=x.device) >= rate
-        else:
-            first, total = self.rows
-            keep = torch.rand((total,) + tuple(shape[1:]), generator=self._gen,
-                              device=x.device)[first:first + shape[0]] >= rate
-        keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype).item()
-        return torch.where(keep, x / keep_prob, 0)
+        keep = self._keep(shape, rate, x.device)
+        return torch.where(keep, x / keep_prob(rate, x.dtype), 0)
 
     def channels(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         """Dropout3d: whole channels of a sample, one (B, 1, 1, 1, C) mask."""
         return self._drop(x, (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],), rate)
 
+    def table(self, b: int, c: int, rate: float, like: torch.Tensor):
+        """``channels`` of a (B, D, H, W, C) tensor of ``like``'s dtype and
+        device, for a kernel to apply: the same draw from the unit's
+        generator as a (B, C) bool keep table, and keep_prob (the
+        ``conv3d_in.Drop``); None at rate 0, where ``channels`` draws
+        nothing."""
+        if rate == 0.0:
+            return None
+        keep = self._keep((b, 1, 1, 1, c), rate, like.device)
+        return keep.reshape(b, c), keep_prob(rate, like.dtype)
+
     def elements(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         return self._drop(x, x.shape, rate)
+
+
+def keep_prob(rate: float, dtype: torch.dtype) -> float:
+    """1 - rate rounded to ``dtype``, as flax's ``x / keep_prob`` takes it."""
+    return torch.tensor(1.0 - rate, dtype=dtype).item()
+
+
+def _table(drop: Optional[Dropout], rate: float, b: int, c: int, like: torch.Tensor):
+    """``drop.table`` of a site whose K4 applies it, or None."""
+    return None if drop is None else drop.table(b, c, rate, like)
+
+
+def _dropped(y: torch.Tensor, drop: Optional[Dropout], rate: float, table) -> torch.Tensor:
+    """y after ``drop``'s channel dropout: as it is where the site's
+    kernels applied ``table``, else ``drop.channels``."""
+    return y if drop is None or table is not None else drop.channels(y, rate)
 
 
 # a unit's dropout: its seed and ``Dropout``'s rows (None in one process)
@@ -258,13 +296,20 @@ def conv_in_relu_library(parts, weight: torch.Tensor, bias: torch.Tensor) -> tor
     return torch.relu(instance_norm(conv_same(x, weight, bias)))
 
 
-def _conv_in_relu(train: bool, kernels: bool, parts, weight: torch.Tensor):
-    """The conv + IN + ReLU of an RDB or transition site on this route: K1
-    and the passes behind it where the route takes kernels and K1 takes the
-    site's widths, the library formulation in the compute dtype otherwise."""
-    if not (kernels and k1_takes([p.shape[-1] for p in parts], weight.shape[0])):
-        return conv_in_relu_library
-    return conv3d_in_relu_ad if train else conv3d_in_relu
+def _conv_in_relu(train: bool, kernels: bool, parts, conv: "Conv",
+                  drop: Optional[Dropout], rate: float) -> torch.Tensor:
+    """The conv + IN + ReLU of an RDB or transition site on this route,
+    then ``drop``'s channel dropout at ``rate``: K1 and the passes behind
+    it where the route takes kernels and K1 takes the site's widths (in
+    training the dropout folded into K4, K5 and K6), the library
+    formulation in the compute dtype otherwise."""
+    w, b = conv.weight, conv.bias
+    if not (kernels and k1_takes([p.shape[-1] for p in parts], w.shape[0])):
+        return _dropped(conv_in_relu_library(parts, w, b), drop, rate, None)
+    if not train:
+        return _dropped(conv3d_in_relu(parts, w, b), drop, rate, None)
+    table = _table(drop, rate, parts[0].shape[0], w.shape[0], parts[0])
+    return _dropped(conv3d_in_relu_ad(parts, w, b, drop=table), drop, rate, table)
 
 
 def depthwise_library(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -419,9 +464,7 @@ class ResidualDenseBlock(nn.Module):
     def forward(self, x: torch.Tensor, rate: float = 0.0, drop: Optional[Dropout] = None,
                 train: bool = False, kernels: bool = True) -> torch.Tensor:
         def block(parts, slot):
-            conv = slot["0"]
-            h = _conv_in_relu(train, kernels, parts, conv.weight)(parts, conv.weight, conv.bias)
-            return h if drop is None else drop.channels(h, rate)
+            return _conv_in_relu(train, kernels, parts, slot["0"], drop, rate)
 
         x1 = block([x], self.conv1)
         x2 = block([x, x1], self.conv2)
@@ -440,10 +483,9 @@ class DualAttention(nn.Module):
                 train: bool = False, kernels: bool = True) -> torch.Tensor:
         lc = self.local_attn["0"]
         conv = depthwise_conv3_ad if kernels else depthwise_library
-        local = in_relu(conv(x, lc.weight, lc.bias), train, kernels)
+        local = in_relu(conv(x, lc.weight, lc.bias), train, kernels, drop, rate)
         g = torch.relu(self.global_attn["1"](avg_pool(x, kernels)))
         if drop is not None:
-            local = drop.channels(local, rate)
             g = drop.channels(g, rate)
         g = torch.sigmoid(self.global_attn["4"](g))
         return self.fusion(torch.cat([local, g * x], dim=-1))
@@ -465,9 +507,8 @@ class EncoderStage(nn.Module):
         DualAttention."""
         x = _unit(self.dense_block, x, rate, seeds[0], train, remat, kernels)
         x = _unit(self.dual_attn, x, rate, seeds[1], train, remat, kernels)
-        t = self.transition["0"]
-        h = _conv_in_relu(train, kernels, [x], t.weight)([x], t.weight, t.bias)
-        return h if seeds[2] is None else Dropout(*seeds[2]).channels(h, rate * 0.5)
+        drop = None if seeds[2] is None else Dropout(*seeds[2])
+        return _conv_in_relu(train, kernels, [x], self.transition["0"], drop, rate * 0.5)
 
 
 class FPN(nn.Module):
@@ -509,9 +550,7 @@ class TaskHead(nn.Module):
         exact.  On the kernel route on the card h1 is overwritten
         (``in_relu``)."""
         x = in_relu(h1, train, kernels)
-        x = in_relu(self.conv2(x), train, kernels)
-        if drop is not None:
-            x = drop.channels(x, rate)
+        x = in_relu(self.conv2(x), train, kernels, drop, rate)
         cal = torch.relu(self.calibration["1"](avg_pool(x, kernels)))
         if drop is not None:
             cal = drop.channels(cal, rate)

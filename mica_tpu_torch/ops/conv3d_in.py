@@ -45,6 +45,13 @@ tensor that exists already (``in_relu_ad``, ``InReluFn``: ``in_sums``
 and K4 forward, K5 and K6 backward), and ``avg_pool_ad`` (``AvgPoolFn``)
 the average pool: ``in_sums`` forward, g / n broadcast backward.
 
+Both autograd functions take the channel dropout that follows the ReLU
+(``drop``: a (B, C) bool keep table and keep_prob): K4 writes
+keep ? y / keep_prob : 0, and K5 and K6 read dy the same way, the bits of
+the eager ``torch.where(keep, y / keep_prob, 0)`` and of autograd's
+backward through it.  ``launches["drop_fwd"]`` and ``["drop_bwd"]``
+count the K4 and K6 launches that applied a table.
+
 Weights are in torch layout, (Co, sum Ci, 3, 3, 3).  A wrapper given CPU
 tensors runs the plain version; given CUDA tensors it launches its kernel
 or raises.  ``launches`` counts kernel launches per wrapper.
@@ -57,6 +64,7 @@ import functools
 from dataclasses import dataclass, replace
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -64,7 +72,7 @@ from . import _build
 from ._build import SMEM_MAX
 
 launches = {"conv3d_stats": 0, "in_apply": 0, "in_apply_ad": 0, "in_bwd_stats": 0,
-            "in_bwd_apply": 0, "in_sums": 0}
+            "in_bwd_apply": 0, "in_sums": 0, "drop_fwd": 0, "drop_bwd": 0}
 
 _BF16 = torch.bfloat16
 
@@ -491,31 +499,53 @@ def _check_table(name: str, b: int, c: int, *ts: torch.Tensor) -> list:
     return out
 
 
-def in_apply_ad_plain(c: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor):
+# A channel dropout folded into K4-K6: (keep, keep_prob), keep a (B, C)
+# bool table, keep_prob the Python float the eager ``x / keep_prob`` takes
+Drop = Tuple[torch.Tensor, float]
+
+
+def drop_plain(t: torch.Tensor, drop: Optional[Drop]) -> torch.Tensor:
+    """``torch.where(keep, t / keep_prob, 0)`` over a (B, D, H, W, C)
+    tensor: the eager channel dropout, and, as 0 / keep_prob is 0, its
+    backward (autograd's ``where`` backward, then the division's); t as it
+    is without a table."""
+    if drop is None:
+        return t
+    keep, keep_prob = drop
+    return torch.where(keep.reshape(keep.shape[0], 1, 1, 1, keep.shape[1]), t / keep_prob, 0)
+
+
+def in_apply_ad_plain(c: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor,
+                      drop: Optional[Drop] = None):
     """Plain version of K4: x̂ = (c - m) * s in c's dtype (m, s cast to it
-    first, each op rounded), y = relu(x̂) taken through f32.  Returns
-    (y, x̂) out of place."""
+    first, each op rounded), y = relu(x̂) taken through f32, then
+    ``drop_plain``.  Returns (y, x̂) out of place."""
     dt = c.dtype
     m = mean.to(dt)[:, None, None, None, :]
     s = scale.to(dt)[:, None, None, None, :]
     xh = (c - m) * s
-    return torch.relu(xh.float()).to(dt), xh
+    return drop_plain(torch.relu(xh.float()).to(dt), drop), xh
 
 
-def in_bwd_stats_plain(xh: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+def in_bwd_stats_plain(xh: torch.Tensor, dy: torch.Tensor,
+                       drop: Optional[Drop] = None) -> torch.Tensor:
     """Plain version of K5: (B, 2, C) f32 sums over the voxels of
-    g = dy·[x̂ > 0] and g·x̂, products of the f32 values."""
+    g = dy·[x̂ > 0] and g·x̂, products of the f32 values, dy taken through
+    ``drop_plain`` first."""
     xf = xh.float()
-    g = torch.where(xf > 0, dy.float(), 0.0)
+    g = torch.where(xf > 0, drop_plain(dy, drop).float(), 0.0)
     return torch.stack([g.sum(dim=(1, 2, 3)), (g * xf).sum(dim=(1, 2, 3))], dim=1)
 
 
 def in_bwd_apply_plain(xh: torch.Tensor, dy: torch.Tensor, m1: torch.Tensor,
-                       m2: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+                       m2: torch.Tensor, scale: torch.Tensor,
+                       drop: Optional[Drop] = None) -> torch.Tensor:
     """Plain version of K6: dc = s·(g − m1 − x̂·m2) in x̂'s dtype, g =
-    dy·[x̂ > 0], with the (B, C) f32 m1, m2 and s cast to that dtype and
-    each op rounded, as ``_bwd_apply_kernel`` does."""
+    dy·[x̂ > 0] (dy through ``drop_plain`` first), with the (B, C) f32 m1,
+    m2 and s cast to that dtype and each op rounded, as
+    ``_bwd_apply_kernel`` does."""
     dt = xh.dtype
+    dy = drop_plain(dy, drop)
     g = torch.where(xh.float() > 0, dy, torch.zeros((), dtype=dy.dtype)).to(dt)
     m1, m2, s = (t.to(dt)[:, None, None, None, :] for t in (m1, m2, scale))
     return s * (g - m1 - xh * m2)
@@ -556,9 +586,17 @@ def _ad_triton():
 
         round_bf16 = round_bf16_jit()
 
+        # With DROP, the kernels apply a (B, C) keep table: keep ?
+        # bf16(v · inv) : 0, inv the f32 1 / keep_prob, the bits of the eager
+        # ``torch.where(keep, v / keep_prob, 0)`` on the card (PyTorch's CUDA
+        # division by a Python float multiplies by its f32 reciprocal).
+        # Without it the table and inv are not read and each kernel is the
+        # one it was without dropout.
+
         @triton.jit
-        def in_apply_ad_kernel(y_ptr, xh_ptr, m_ptr, s_ptr, S, C,
-                               BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
+        def in_apply_ad_kernel(y_ptr, xh_ptr, m_ptr, s_ptr, keep_ptr, inv, S, C,
+                               BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr,
+                               DROP: tl.constexpr):
             pid_s = tl.program_id(0)
             pid_c = tl.program_id(1)
             b = tl.program_id(2)
@@ -576,17 +614,23 @@ def _ad_triton():
             xh = (t * s[None, :]).to(tl.bfloat16)
             tl.store(xh_ptr + offs, xh, mask=mask)
             # relu of the rounded x̂ is exact in bf16
-            tl.store(y_ptr + offs, tl.maximum(xh.to(tl.float32), 0.0).to(tl.bfloat16),
-                     mask=mask)
+            y = tl.maximum(xh.to(tl.float32), 0.0)
+            if DROP:
+                keep = tl.load(keep_ptr + b * C + cols, mask=cmask, other=0) != 0
+                y = tl.where(keep[None, :], y * inv, 0.0)
+            tl.store(y_ptr + offs, y.to(tl.bfloat16), mask=mask)
 
         @triton.jit
-        def in_bwd_stats_kernel(xh_ptr, dy_ptr, buf_ptr, S, C, CHUNK, N_CHUNKS,
-                                BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
+        def in_bwd_stats_kernel(xh_ptr, dy_ptr, keep_ptr, inv, buf_ptr, S, C, CHUNK, N_CHUNKS,
+                                BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr,
+                                DROP: tl.constexpr):
             pid_s = tl.program_id(0)
             pid_c = tl.program_id(1)
             b = tl.program_id(2)
             cols = pid_c * BLOCK_C + tl.arange(0, BLOCK_C)
             cmask = cols < C
+            if DROP:
+                keep = tl.load(keep_ptr + b * C + cols, mask=cmask, other=0) != 0
             # tile-shaped sums: each tile is added elementwise, and the rows
             # are reduced once, after the loop
             acc_g = tl.zeros((BLOCK_S, BLOCK_C), dtype=tl.float32)
@@ -598,6 +642,8 @@ def _ad_triton():
                 mask = (rows < S)[:, None] & cmask[None, :]
                 xh = tl.load(xh_ptr + offs, mask=mask, other=0.0).to(tl.float32)
                 dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+                if DROP:
+                    dy = tl.where(keep[None, :], round_bf16(dy * inv), 0.0)
                 g = tl.where(xh > 0, dy, 0.0)
                 acc_g += g
                 acc_gx += g * xh
@@ -627,8 +673,9 @@ def _ad_triton():
             tl.store(buf_ptr + (b * 2 + k) * C + cols, tl.sum(acc, axis=0), mask=cmask)
 
         @triton.jit
-        def in_bwd_apply_kernel(xh_ptr, dy_ptr, dc_ptr, m1_ptr, m2_ptr, s_ptr, S, C,
-                                BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
+        def in_bwd_apply_kernel(xh_ptr, dy_ptr, dc_ptr, m1_ptr, m2_ptr, s_ptr, keep_ptr, inv,
+                                S, C, BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr,
+                                DROP: tl.constexpr):
             pid_s = tl.program_id(0)
             pid_c = tl.program_id(1)
             b = tl.program_id(2)
@@ -645,6 +692,9 @@ def _ad_triton():
             mask = (rows < S)[:, None] & cmask[None, :]
             xh = tl.load(xh_ptr + offs, mask=mask, other=0.0).to(tl.float32)
             dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+            if DROP:
+                keep = tl.load(keep_ptr + b * C + cols, mask=cmask, other=0) != 0
+                dy = tl.where(keep[None, :], round_bf16(dy * inv), 0.0)
             g = tl.where(xh > 0, dy, 0.0)
             # each op rounds to bf16, as the eager bf16 expression does
             t1 = round_bf16(g - m1[None, :])
@@ -657,22 +707,41 @@ def _ad_triton():
     return _ad_kernels
 
 
-def in_apply_ad(c: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor):
+def _drop_args(name: str, drop: Optional[Drop], like: torch.Tensor):
+    """(keep table, inv, DROP) of K4-K6: the (B, C) bool table as bytes and
+    the f32 1 / keep_prob, or without a table ``like`` and 1.0, unread."""
+    if drop is None:
+        return like, 1.0, False
+    keep, keep_prob = drop
+    if (keep.dtype != torch.bool or keep.device != like.device
+            or tuple(keep.shape) != (like.shape[0], like.shape[-1])):
+        raise ValueError(f"{name}: the keep table must be a (B, C) bool tensor on "
+                         f"{like.device}")
+    inv = float(np.float32(1.0) / np.float32(keep_prob))
+    return keep.contiguous().view(torch.uint8), inv, True
+
+
+def in_apply_ad(c: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor,
+                drop: Optional[Drop] = None):
     """K4, replaces ``_in_apply_ad_T``.  ``c`` (B, D, H, W, C) conv output;
-    ``mean``/``scale`` (B, C) f32.  Returns (y, x̂); on the card y is
-    written over ``c`` and x̂ into a new tensor."""
+    ``mean``/``scale`` (B, C) f32; ``drop`` a channel dropout applied to y.
+    Returns (y, x̂); on the card y is written over ``c`` and x̂ into a new
+    tensor."""
     if c.device.type == "cpu":
-        return in_apply_ad_plain(c, mean, scale)
+        return in_apply_ad_plain(c, mean, scale, drop)
     _check_bf16_5d("in_apply_ad", c)
     b, ch = c.shape[0], c.shape[4]
     s = c.shape[1] * c.shape[2] * c.shape[3]
     mean, scale = _check_table("in_apply_ad", b, ch, mean, scale)
+    keep, inv, on = _drop_args("in_apply_ad", drop, c)
     triton, kernel, _, _ = _ad_triton()
     xh = torch.empty_like(c)
     block_s, block_c = _tile(ch, triton)
     grid = (triton.cdiv(s, block_s), triton.cdiv(ch, block_c), b)
-    kernel[grid](c, xh, mean, scale, s, ch, BLOCK_S=block_s, BLOCK_C=block_c, num_warps=8)
+    kernel[grid](c, xh, mean, scale, keep, inv, s, ch, BLOCK_S=block_s, BLOCK_C=block_c,
+                 DROP=on, num_warps=8)
     launches["in_apply_ad"] += 1
+    launches["drop_fwd"] += on
     return c, xh
 
 
@@ -761,11 +830,14 @@ def k5_plan(shape: Sequence[int], sm_count: int = 132) -> K5Plan:
 k5_kernels: dict = {}
 
 
-def _chunk_sums(cache: dict, key, kernel, inputs, plan: K5Plan, warps: int) -> torch.Tensor:
+def _chunk_sums(cache: dict, key, kernel, inputs, plan: K5Plan, warps: int,
+                consts: Optional[dict] = None) -> torch.Tensor:
     """Launches ``kernel`` over ``inputs`` (one partial row pair a sample,
     chunk and channel block into ``plan.buffer``), then K5's second kernel,
     which adds the chunks in a fixed order; returns the (B, 2, C) sums.
+    ``consts``: the kernel's constexpr arguments after BLOCK_C, by name.
     ``cache[key]`` keeps the compiled pair and its launchers."""
+    consts = consts or {}
     b, ch = plan.shape[0], plan.shape[4]
     buf = torch.empty(plan.buffer, dtype=torch.float32, device=inputs[0].device)
     args = (*inputs, buf, plan.voxels, ch, plan.chunk, plan.n_chunks)
@@ -777,26 +849,30 @@ def _chunk_sums(cache: dict, key, kernel, inputs, plan: K5Plan, warps: int) -> t
         # per-call binding and cache lookup, most of the host's time a call
         _, _, (_, sum_kernel), _ = _ad_triton()
         k = kernel[plan.grid](*args, BLOCK_S=plan.block_s, BLOCK_C=plan.block_c,
-                              num_warps=warps)
+                              num_warps=warps, **consts)
         s = sum_kernel[plan.sum_grid](*sum_args, BLOCK_R=K5_SUM_ROWS,
                                       BLOCK_C=plan.block_c, num_warps=4)
         cache[key] = (k, s, k[plan.grid], s[plan.sum_grid])
     else:
-        compiled[2](*args, plan.block_s, plan.block_c)
+        compiled[2](*args, plan.block_s, plan.block_c, *consts.values())
         compiled[3](*sum_args, K5_SUM_ROWS, plan.block_c)
     return buf[:b]
 
 
-def in_bwd_stats(xh: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+def in_bwd_stats(xh: torch.Tensor, dy: torch.Tensor, drop: Optional[Drop] = None) -> torch.Tensor:
     """K5, replaces ``_in_bwd_stats_T``.  Per-(b, c) sums of g = dy·[x̂>0]
-    and g·x̂ over the voxels: (B, 2, C) f32, in a fixed order (``k5_plan``)."""
+    and g·x̂ over the voxels, dy read through ``drop``: (B, 2, C) f32, in a
+    fixed order (``k5_plan``)."""
     if xh.device.type == "cpu":
-        return in_bwd_stats_plain(xh, dy)
+        return in_bwd_stats_plain(xh, dy, drop)
     _check_bf16_5d("in_bwd_stats", xh, dy)
+    keep, inv, on = _drop_args("in_bwd_stats", drop, xh)
     plan = k5_plan(xh.shape, _build.sm_count(xh.device))
-    key = (plan, xh.device, xh.data_ptr() % 16 == 0, dy.data_ptr() % 16 == 0)
+    key = (plan, xh.device, xh.data_ptr() % 16 == 0, dy.data_ptr() % 16 == 0, on,
+           keep.data_ptr() % 16 == 0)
     _, _, (kernel, _), _ = _ad_triton()
-    sums = _chunk_sums(k5_kernels, key, kernel, (xh, dy), plan, K5_WARPS)
+    sums = _chunk_sums(k5_kernels, key, kernel, (xh, dy, keep, inv), plan, K5_WARPS,
+                       {"DROP": on})
     launches["in_bwd_stats"] += 1
     return sums
 
@@ -898,22 +974,25 @@ def in_sums(x: torch.Tensor) -> torch.Tensor:
 
 
 def in_bwd_apply(xh: torch.Tensor, dy: torch.Tensor, m1: torch.Tensor,
-                 m2: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+                 m2: torch.Tensor, scale: torch.Tensor,
+                 drop: Optional[Drop] = None) -> torch.Tensor:
     """K6, replaces ``_in_bwd_apply_T``: dc = s·(g − m1 − x̂·m2) into a new
-    tensor; m1, m2, s (B, C) f32."""
+    tensor, dy read through ``drop``; m1, m2, s (B, C) f32."""
     if xh.device.type == "cpu":
-        return in_bwd_apply_plain(xh, dy, m1, m2, scale)
+        return in_bwd_apply_plain(xh, dy, m1, m2, scale, drop)
     _check_bf16_5d("in_bwd_apply", xh, dy)
     b, ch = xh.shape[0], xh.shape[4]
     s = xh.shape[1] * xh.shape[2] * xh.shape[3]
     m1, m2, scale = _check_table("in_bwd_apply", b, ch, m1, m2, scale)
+    keep, inv, on = _drop_args("in_bwd_apply", drop, xh)
     triton, _, _, kernel = _ad_triton()
     dc = torch.empty_like(xh)
     block_s, block_c = _tile(ch, triton)
     grid = (triton.cdiv(s, block_s), triton.cdiv(ch, block_c), b)
-    kernel[grid](xh, dy, dc, m1, m2, scale, s, ch, BLOCK_S=block_s, BLOCK_C=block_c,
-                 num_warps=8)
+    kernel[grid](xh, dy, dc, m1, m2, scale, keep, inv, s, ch, BLOCK_S=block_s,
+                 BLOCK_C=block_c, DROP=on, num_warps=8)
     launches["in_bwd_apply"] += 1
+    launches["drop_bwd"] += on
     return dc
 
 
@@ -925,30 +1004,48 @@ def _voxels(t: torch.Tensor) -> int:
     return t.shape[1] * t.shape[2] * t.shape[3]
 
 
-def _in_relu_forward(c: torch.Tensor, stats: torch.Tensor, eps: float):
-    """``in_stats`` from c's (B, 2, C) sums, then K4: (y, x̂, the (B, C)
-    f32 scale); on the card y is written over c."""
+def _in_relu_forward(c: torch.Tensor, stats: torch.Tensor, eps: float,
+                     drop: Optional[Drop]):
+    """``in_stats`` from c's (B, 2, C) sums, then K4 (with ``drop``): (y,
+    x̂, the (B, C) f32 scale); on the card y is written over c."""
     mean, scale = in_stats(stats, _voxels(c), eps)
-    y, xh = in_apply_ad(c, mean, scale)
+    y, xh = in_apply_ad(c, mean, scale, drop=drop)
     return y, xh, scale
 
 
-def _in_relu_backward(xh: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """K5, then m1, m2 = its sums / n, then K6: the InstanceNorm + ReLU's
-    input gradient dc = s·(g − m1 − x̂·m2)."""
+def _in_relu_backward(xh: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                      drop: Optional[Drop]) -> torch.Tensor:
+    """K5, then m1, m2 = its sums / n, then K6, both reading dy through
+    ``drop``: the InstanceNorm + ReLU's input gradient dc = s·(g − m1 −
+    x̂·m2)."""
     dy = dy.to(xh.dtype).contiguous()
     n = _voxels(xh)
-    gstats = in_bwd_stats(xh, dy)
-    return in_bwd_apply(xh, dy, gstats[:, 0] / n, gstats[:, 1] / n, scale)
+    gstats = in_bwd_stats(xh, dy, drop=drop)
+    return in_bwd_apply(xh, dy, gstats[:, 0] / n, gstats[:, 1] / n, scale, drop=drop)
+
+
+def _save(ctx, drop: Optional[Drop], *ts: torch.Tensor) -> None:
+    """Saves ``ts`` and ``drop``'s table (None without one) for
+    ``_saved``."""
+    ctx.keep_prob = None if drop is None else drop[1]
+    ctx.save_for_backward(None if drop is None else drop[0], *ts)
+
+
+def _saved(ctx):
+    """(the drop, the tensors) ``_save`` kept."""
+    keep, *ts = ctx.saved_tensors
+    return (None if keep is None else (keep, ctx.keep_prob)), ts
 
 
 class Conv3dInReluFn(torch.autograd.Function):
     """relu(instance_norm(conv3x3(concat(parts)) + bias)) with the custom
-    backward of ``wino_conv3d_in_relu_pallas_ad``:
+    backward of ``wino_conv3d_in_relu_pallas_ad``, then the channel
+    dropout ``drop`` (or None):
 
-      forward   K1 (with statistics) -> ``in_stats`` -> K4, saving the
-                parts, the weight, x̂ and the (B, Co) f32 scale;
-      backward  K5 -> m1, m2 = sums / n -> K6 gives dc;
+      forward   K1 (with statistics) -> ``in_stats`` -> K4 (with ``drop``),
+                saving the parts, the weight, x̂, the (B, Co) f32 scale and
+                the keep table;
+      backward  K5 -> m1, m2 = sums / n -> K6 (both with ``drop``) gives dc;
                 dx = K1 on dc with the zyx-flipped, Ci<->Co swapped
                 weight, no bias and no statistics, split per part;
                 dk = the library's weight-grad conv per part, in the parts'
@@ -957,21 +1054,21 @@ class Conv3dInReluFn(torch.autograd.Function):
                 db = 0 exactly: InstanceNorm subtracts each channel's mean,
                 so a constant shift never reaches y.
 
-    ``apply(weight, bias, eps, *parts)``."""
+    ``apply(weight, bias, eps, drop, *parts)``."""
 
     @staticmethod
-    def forward(ctx, weight, bias, eps, *parts):
+    def forward(ctx, weight, bias, eps, drop, *parts):
         y, xh, scale = _in_relu_forward(*conv3d(list(parts), weight, bias, with_stats=True),
-                                        eps)
-        ctx.save_for_backward(weight, xh, scale, *parts)
+                                        eps, drop)
+        _save(ctx, drop, weight, xh, scale, *parts)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        weight, xh, scale, *parts = ctx.saved_tensors
-        dc = _in_relu_backward(xh, scale, dy)
+        drop, (weight, xh, scale, *parts) = _saved(ctx)
+        dc = _in_relu_backward(xh, scale, dy, drop)
         dparts = [None] * len(parts)
-        if any(ctx.needs_input_grad[3:]):
+        if any(ctx.needs_input_grad[4:]):
             dx, _ = conv3d([dc], weight.flip(2, 3, 4).transpose(0, 1), None, with_stats=False)
             offs = 0
             for i, p in enumerate(parts):
@@ -985,49 +1082,52 @@ class Conv3dInReluFn(torch.autograd.Function):
             dweight = torch.cat(dks, dim=1).to(weight.dtype)
         if ctx.needs_input_grad[1]:
             dbias = torch.zeros_like(weight[:, 0, 0, 0, 0])
-        return (dweight, dbias, None, *dparts)
+        return (dweight, dbias, None, None, *dparts)
 
 
 def conv3d_in_relu_ad(parts: Sequence[torch.Tensor], weight: torch.Tensor,
-                      bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+                      bias: torch.Tensor, eps: float = 1e-5,
+                      drop: Optional[Drop] = None) -> torch.Tensor:
     """Differentiable ``conv3d_in_relu`` (K1, K4 forward; K5, K6, K1 and a
-    library weight-grad backward); matches ``wino_conv3d_in_relu_pallas_ad``."""
-    return Conv3dInReluFn.apply(weight, bias, eps, *_as_parts(parts))
+    library weight-grad backward), then the channel dropout ``drop``
+    folded into K4, K5 and K6; matches ``wino_conv3d_in_relu_pallas_ad``."""
+    return Conv3dInReluFn.apply(weight, bias, eps, drop, *_as_parts(parts))
 
 
 class InReluFn(torch.autograd.Function):
-    """relu(instance_norm(x)) of a tensor that exists already:
-    ``Conv3dInReluFn`` without the conv.
+    """relu(instance_norm(x)) of a tensor that exists already, then the
+    channel dropout ``drop`` (or None): ``Conv3dInReluFn`` without the conv.
 
-      forward   ``in_sums`` -> ``in_stats`` -> K4, saving x̂ and the
-                (B, C) f32 scale.  On the card K4 writes y over x, which
+      forward   ``in_sums`` -> ``in_stats`` -> K4, saving x̂, the (B, C)
+                f32 scale and the keep table.  On the card K4 writes y over x, which
                 is marked dirty: at each of the model's sites x is a fresh
                 tensor that no node saves (K3's output, a sum with a bias),
                 so nothing is cloned;
       backward  K5 -> m1, m2 = sums / n -> K6 gives dx.
 
     On the card x must be contiguous bf16 (the wrappers raise); on the CPU
-    the plain versions run at any dtype.  ``apply(x, eps)``."""
+    the plain versions run at any dtype.  ``apply(x, eps, drop)``."""
 
     @staticmethod
-    def forward(ctx, x, eps):
-        y, xh, scale = _in_relu_forward(x, in_sums(x), eps)
+    def forward(ctx, x, eps, drop):
+        y, xh, scale = _in_relu_forward(x, in_sums(x), eps, drop)
         if y is x:
             ctx.mark_dirty(x)
-        ctx.save_for_backward(xh, scale)
+        _save(ctx, drop, xh, scale)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        xh, scale = ctx.saved_tensors
-        return _in_relu_backward(xh, scale, dy), None
+        drop, (xh, scale) = _saved(ctx)
+        return _in_relu_backward(xh, scale, dy, drop), None, None
 
 
-def in_relu_ad(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def in_relu_ad(x: torch.Tensor, eps: float = 1e-5, drop: Optional[Drop] = None) -> torch.Tensor:
     """Differentiable relu(instance_norm(x)) over (D, H, W) of a
-    (B, D, H, W, C) tensor (``in_sums``, K4; K5, K6); on the card x is
+    (B, D, H, W, C) tensor (``in_sums``, K4; K5, K6), then the channel
+    dropout ``drop`` folded into K4, K5 and K6; on the card x is
     overwritten with the result."""
-    return InReluFn.apply(x, eps)
+    return InReluFn.apply(x, eps, drop)
 
 
 class AvgPoolFn(torch.autograd.Function):

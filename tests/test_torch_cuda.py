@@ -11,6 +11,9 @@ the output is 2^-9 relative), statistics 1e-4 relative (f32 sums in
 another order, with atomics).  K4 and K6 are bitwise equal to their bf16
 plain versions; K5's and K7's f32 sums stay within 1e-5 of the sum of
 the terms' magnitudes, and both are equal to the bit from call to call.
+With a channel dropout's keep table K4 and K6 stay bitwise equal to their
+plain versions (the eager ``torch.where(keep, v / keep_prob, 0)`` on the
+card), and K5 equals itself without the table over that eager dy.
 ``Conv3dInReluFn``'s and ``InReluFn``'s outputs and gradients stay
 within 1e-2 relative L2 of the same function run on the CPU, and
 ``AvgPoolFn``'s gradient equals it.  K8 stays
@@ -311,6 +314,84 @@ def test_in_apply_ad_matches_plain_bitwise(gen, shape, c):
     assert torch.equal(y, want_y) and torch.equal(xh, want_xh)
     err = max((y.float() - f32_y).abs().max().item(), (xh.float() - f32_xh).abs().max().item())
     assert err <= 1e-2 * f32_xh.abs().max().item(), err
+
+
+def _drop_table(gen, b: int, c: int, rate: float):
+    """A channel dropout at ``rate`` as the model hands it to K4-K6: a
+    (B, C) keep table, sample 0 dropping every channel and sample 1
+    keeping every one, and the bf16 keep_prob."""
+    from mica_tpu_torch.models.mica import keep_prob
+
+    keep = torch.rand(b, c, device="cuda", generator=gen) >= rate
+    keep[0], keep[1] = False, True
+    return keep, keep_prob(rate, torch.bfloat16)
+
+
+def _launched(before: dict) -> dict:
+    from mica_tpu_torch.ops import conv3d_in
+
+    return {k: v - before[k] for k, v in conv3d_in.launches.items() if v != before[k]}
+
+
+# the widths of the sites whose dropout K4-K6 apply at base 64 (the RDB
+# convs, transitions, DualAttention and heads' norms), beside odd shapes
+DROP_CASES = ([((2, 4, 6, 8), c) for c in (32, 192)]
+              + [(ENGINE_BATCH, c) for c in (32, 64, 128, 256, 512)])
+
+
+@pytest.mark.parametrize("rate", [0.01, 0.3])
+@pytest.mark.parametrize("shape,c", DROP_CASES)
+def test_in_apply_ad_with_a_drop_table_matches_plain_bitwise(gen, shape, c, rate):
+    """K4 with a keep table: y and x̂ bitwise against the plain version
+    (eager dropout on the card), y 0 in the sample that drops all and
+    the undropped y / keep_prob in the one that keeps all; one launch,
+    counted in ``drop_fwd``."""
+    from mica_tpu_torch.ops import conv3d_in
+
+    x = torch.randn(*shape, c, device="cuda", generator=gen).to(torch.bfloat16)
+    mean = torch.randn(shape[0], c, device="cuda", generator=gen)
+    scale = torch.rand(shape[0], c, device="cuda", generator=gen) + 0.5
+    drop = _drop_table(gen, shape[0], c, rate)
+    want_y, want_xh = conv3d_in.in_apply_ad_plain(x, mean, scale, drop)
+    bare_y, _ = conv3d_in.in_apply_ad_plain(x, mean, scale)
+    before = dict(conv3d_in.launches)
+    y, xh = conv3d_in.in_apply_ad(x, mean, scale, drop=drop)
+    assert _launched(before) == {"in_apply_ad": 1, "drop_fwd": 1}
+    assert torch.equal(y, want_y) and torch.equal(xh, want_xh)
+    assert not y[0].any() and torch.equal(y[1], bare_y[1] / drop[1])
+
+
+@pytest.mark.parametrize("rate", [0.01, 0.3])
+@pytest.mark.parametrize("shape,c", DROP_CASES)
+def test_in_bwd_kernels_with_a_drop_table_match_plain(gen, shape, c, rate):
+    """K5 with a keep table equal to the bit to K5 without one over the
+    eager dropout of dy (``drop_plain``) and from call to call, within
+    1e-5 of the terms' magnitudes of its plain version; K6 with the table
+    bitwise against its plain version and against K6 over the eager dy;
+    one K6 launch counted in ``drop_bwd``."""
+    from mica_tpu_torch.ops import conv3d_in
+
+    xh = torch.randn(*shape, c, device="cuda", generator=gen).to(torch.bfloat16)
+    dy = torch.randn(*shape, c, device="cuda", generator=gen).to(torch.bfloat16)
+    drop = _drop_table(gen, shape[0], c, rate)
+    dy_drop = conv3d_in.drop_plain(dy, drop)
+    before = dict(conv3d_in.launches)
+    st = conv3d_in.in_bwd_stats(xh, dy, drop=drop)
+    assert _launched(before) == {"in_bwd_stats": 1}
+    assert torch.equal(st, conv3d_in.in_bwd_stats(xh, dy_drop))
+    assert torch.equal(conv3d_in.in_bwd_stats(xh, dy, drop=drop), st)
+    want = conv3d_in.in_bwd_stats_plain(xh, dy, drop)
+    mag = conv3d_in.in_bwd_stats_plain(xh.abs(), dy_drop.abs())
+    assert ((st - want).abs() <= 1e-5 * mag + 1e-4).all()
+    assert not st[0].any()
+    n = shape[1] * shape[2] * shape[3]
+    scale = torch.rand(shape[0], c, device="cuda", generator=gen) + 0.5
+    args = (xh, dy, st[:, 0] / n, st[:, 1] / n, scale)
+    before = dict(conv3d_in.launches)
+    got = conv3d_in.in_bwd_apply(*args, drop=drop)
+    assert _launched(before) == {"in_bwd_apply": 1, "drop_bwd": 1}
+    assert torch.equal(got, conv3d_in.in_bwd_apply_plain(*args, drop=drop))
+    assert torch.equal(got, conv3d_in.in_bwd_apply(xh, dy_drop, *args[2:]))
 
 
 @pytest.mark.parametrize("shape", [(2, 4, 6, 8, 64), (3, 5, 7, 9, 192), (1, 16, 16, 16, 32)]
@@ -663,7 +744,8 @@ def test_in_relu_ad_and_avg_pool_ad_match_the_cpu(gen, shape):
         got.append([t.detach().cpu() for t in (y, dx, pool, dxp)])
         launched[dev] = {k: conv3d_in.launches[k] - before[k] for k in before}
     assert launched["cuda"] == {"conv3d_stats": 0, "in_apply": 0, "in_apply_ad": 1,
-                                "in_bwd_stats": 1, "in_bwd_apply": 1, "in_sums": 2}
+                                "in_bwd_stats": 1, "in_bwd_apply": 1, "in_sums": 2,
+                                "drop_fwd": 0, "drop_bwd": 0}
     assert set(launched["cpu"].values()) == {0}
     (y, dx, pool, dxp), (y_c, dx_c, pool_c, dxp_c) = got
     for a, want in ((y, y_c), (dx, dx_c)):
@@ -988,7 +1070,10 @@ def test_trainer_step_base16_bf16_on_the_card(gen):
     only at the sites it takes (5 forward, 3 recomputed RDB sites, 5 dx),
     with K4 at those 8 and at the 9 norms that follow no K1, forward and
     recomputed (26), K5, K6 at 5 + 9, ``in_sums`` at those 9 norms and the
-    10 pools, forward and, but for the stem's pool, recomputed (37)."""
+    10 pools, forward and, but for the stem's pool, recomputed (37); the
+    dropout (0.01) in K4 at the 5 K1 sites, the 3 DualAttention and 3
+    heads' second norms and, recomputed, 3 + 3 + 3 of them (20), in K6 at
+    the 11."""
     import numpy as np
 
     from mica_tpu_torch.ops import conv3d_in
@@ -1003,7 +1088,7 @@ def test_trainer_step_base16_bf16_on_the_card(gen):
     assert np.isfinite(float(met["total_loss"]))
     assert {k: conv3d_in.launches[k] - before[k] for k in before} == {
         "conv3d_stats": 13, "in_apply": 0, "in_apply_ad": 26, "in_bwd_stats": 14,
-        "in_bwd_apply": 14, "in_sums": 37}
+        "in_bwd_apply": 14, "in_sums": 37, "drop_fwd": 20, "drop_bwd": 11}
 
 
 def test_merizo_on_the_card_matches_the_cpu(gen):

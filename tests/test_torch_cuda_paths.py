@@ -37,9 +37,13 @@ INFERENCE_ONLY = ("in_apply", "stem9", "gather_windows", "scatter_cores")
 # recomputed + 12 dx; K4 at those 12 + 9 and at the 9 norms that follow no
 # K1, forward and recomputed, 18; K5, K6 12 + 9; ``in_sums`` at those 9
 # norms and the 10 pools, 19 forward + 18 recomputed (all but the stem's
-# pool); K3 3 forward + 3 recomputed + 3 dx
+# pool); K3 3 forward + 3 recomputed + 3 dx; with dropout, K4 applies it
+# at the 12 K1 sites, the 3 DualAttention and 3 heads' second norms, 18,
+# and recomputed at 9 + 3 + 3, K6 at the 18
+DROP_PER_STEP = {"drop_fwd": 33, "drop_bwd": 18}
 TRAIN_PER_STEP = {"conv3d_stats": 33, "in_apply_ad": 39, "in_bwd_stats": 21,
-                  "in_bwd_apply": 21, "in_sums": 37, "depthwise3": 9, "depthwise3_grads": 3}
+                  "in_bwd_apply": 21, "in_sums": 37, "depthwise3": 9, "depthwise3_grads": 3,
+                  **DROP_PER_STEP}
 # Limits of the bf16 card gradient against the f32 CPU gradient: (cosine
 # of the whole vector, worst cosine of a tensor above 1e-4 of the largest
 # reference norm) at weights initialised from the seed, and the whole
@@ -90,7 +94,8 @@ DEMO_COVERAGE_FLOOR = 0.9
 # launches at base 16, where K1 takes 5 of the 13 sites: a training step
 # (recomputation on) and an inference forward
 LEARNED_PER_STEP = {"conv3d_stats": 13, "in_apply_ad": 26, "in_bwd_stats": 14,
-                    "in_bwd_apply": 14, "in_sums": 37, "depthwise3": 9, "depthwise3_grads": 3}
+                    "in_bwd_apply": 14, "in_sums": 37, "depthwise3": 9, "depthwise3_grads": 3,
+                    "drop_fwd": 20, "drop_bwd": 11}
 LEARNED_PER_FORWARD = {"conv3d_stats": 5, "in_apply": 14, "in_sums": 19, "depthwise3": 3,
                        "stem9": 1}
 # The multi-GPU test, limits set before its first card run.  World 2
@@ -375,6 +380,52 @@ def test_trainer_at_base_64_and_its_gradient_against_the_f32_cpu(card):
     whole, _, _ = _agreement(_grads(trained, torch.bfloat16, "cuda"),
                              _grads(trained, torch.float32, "cpu"))
     assert whole >= GRAD_TRAINED_MIN, whole
+
+
+def test_folded_dropout_step_is_the_eager_one_to_the_bit(card, monkeypatch):
+    """A bf16 ``Trainer`` step at base 64 (batch 2 of 64^3
+    ``synthetic_batch`` windows, recomputation and augmentation on, the
+    epoch-0 dropout 0.01, cuDNN held deterministic) with the dropout
+    folded into K4-K6, and the same step with every site's dropout eager
+    (``Dropout.table`` None: ``Dropout.channels`` after the site): the
+    loss and every gradient equal to the bit; ``DROP_PER_STEP`` launches
+    with the fold, none without it, and none in an inference forward."""
+    from mica_tpu_torch.models.mica import Dropout, dropout_rate_for_epoch
+    from mica_tpu_torch.train.data import synthetic_batch
+    from mica_tpu_torch.train.loss import task_lambdas
+    from mica_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    batch = [torch.as_tensor(b).cuda() for b in synthetic_batch(2, WIN, SEED)]
+    runs = []
+    for eager in (False, True):
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(Dropout, "table", lambda self, *a: None)
+            trainer = Trainer(base_filters=BASE, dtype=torch.bfloat16, seed=SEED)
+            state = trainer.init_state()
+            before = ranks.launch_counts()
+            met = trainer.train_step(state, batch, task_lambdas(0), dropout_rate_for_epoch(0))
+            torch.cuda.synchronize()
+            counts = ranks.launched_since(before)
+            runs.append(({"loss": met["total_loss"].detach().clone(),
+                          **{n: p.grad.clone() for n, p in trainer.model.named_parameters()
+                             if p.grad is not None}},
+                         {k: counts[k] for k in DROP_PER_STEP}))
+            if not eager:
+                before = ranks.launch_counts()
+                with torch.no_grad():
+                    trainer.model(batch[0][..., None], batch[1].movedim(1, -1).contiguous())
+                torch.cuda.synchronize()
+                assert {k: ranks.launched_since(before)[k] for k in DROP_PER_STEP} == \
+                    dict.fromkeys(DROP_PER_STEP, 0)
+            del trainer, state
+    (folded, n_folded), (eager, n_eager) = runs
+    assert n_folded == DROP_PER_STEP and n_eager == dict.fromkeys(DROP_PER_STEP, 0)
+    assert folded.keys() == eager.keys() and len(folded) > 1
+    differ = [k for k in folded if not torch.equal(folded[k], eager[k])]
+    assert differ == [], differ
 
 
 def test_f32_on_the_card_takes_the_library_route(card, tmp_path):

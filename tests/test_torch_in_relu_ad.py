@@ -92,8 +92,8 @@ def test_k4_over_its_input_leaves_a_bf16_step_as_it_was(monkeypatch):
     plain = conv3d_in.in_apply_ad
     written = []
 
-    def over_input(c, mean, scale):
-        y, xh = plain(c, mean, scale)
+    def over_input(c, mean, scale, drop=None):
+        y, xh = plain(c, mean, scale, drop=drop)
         written.append(c.shape[-1])
         return c.copy_(y), xh
 

@@ -53,6 +53,13 @@ def calls(monkeypatch):
     return seen
 
 
+def library_in_relu(t, train, kernels, drop=None, rate=0.0):
+    """``in_relu`` on the library's ``instance_norm``, then the eager
+    channel dropout that the kernel route folds into K4."""
+    y = torch.relu(mica.instance_norm(t))
+    return y if drop is None else drop.channels(y, rate)
+
+
 def _inputs(af: bool, n=1, d=4):
     r = np.random.default_rng(0)
     x = torch.from_numpy(r.random((n, d, d, d, 1)).astype(np.float32))
@@ -94,7 +101,7 @@ def test_bf16_forward_is_the_library_statistics_forward_to_the_bit(monkeypatch, 
     x, a = _inputs(af, n=2, d=8)
     with torch.no_grad():
         got = model(x, a)
-        monkeypatch.setattr(mica, "in_relu", lambda t, *route: torch.relu(mica.instance_norm(t)))
+        monkeypatch.setattr(mica, "in_relu", library_in_relu)
         monkeypatch.setattr(mica, "avg_pool", lambda t, *route: mica.global_avg_pool(t))
         want = model(x, a)
     for g, w in zip(got, want):
@@ -108,9 +115,10 @@ def test_bf16_training_forward_is_the_library_statistics_forward_to_the_bit(
         monkeypatch, base, remat, rate):
     """The training twin of the test above: ``train=True`` under autograd,
     recomputation on and off, dropout 0 and 0.01 from one generator's
-    seed; the forward through ``in_relu_ad`` and ``avg_pool_ad`` equals
-    the one through the library's ``instance_norm`` and
-    ``global_avg_pool`` to the bit."""
+    seed; the forward through ``in_relu_ad`` (the dropout folded into K4)
+    and ``avg_pool_ad`` equals the one through the library's
+    ``instance_norm`` and ``global_avg_pool`` with the eager dropout to
+    the bit."""
     model = MICA(base=base, dtype=torch.bfloat16, remat=remat).init_weights(
         torch.Generator().manual_seed(1))
     x, a = _inputs(True, n=2, d=8)
@@ -120,7 +128,7 @@ def test_bf16_training_forward_is_the_library_statistics_forward_to_the_bit(
                      generator=torch.Generator().manual_seed(2))
 
     got = forward()
-    monkeypatch.setattr(mica, "in_relu", lambda t, *route: torch.relu(mica.instance_norm(t)))
+    monkeypatch.setattr(mica, "in_relu", library_in_relu)
     monkeypatch.setattr(mica, "avg_pool", lambda t, *route: mica.global_avg_pool(t))
     want = forward()
     for g, w in zip(got, want):
